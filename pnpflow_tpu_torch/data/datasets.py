@@ -2,11 +2,13 @@
 
 A copy of ``pnpflow_tpu/data/datasets.py`` (synthetic, mnist and the three
 image-file datasets).  PIL and pandas are imported only by the file
-datasets that need them, so the synthetic path runs on numpy alone.
+datasets that need them, so the synthetic path runs on numpy alone; its
+splits are made at first use, with the same seeds and values.
 """
 
 from __future__ import annotations
 
+import functools
 import gzip
 import os
 import struct
@@ -87,14 +89,22 @@ class _FileDataset:
 
 
 class _ArrayDataset:
-    """In-memory NHWC dataset (mnist / synthetic)."""
+    """In-memory NHWC dataset (mnist / synthetic).  ``images`` may be a
+    callable that makes the array at first use, so a split that a run never
+    reads costs nothing."""
 
     def __init__(self, images, batch_size, shuffle=False, seed=0):
-        self.images = images
+        self._images = images
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self._epoch = 0
+
+    @property
+    def images(self):
+        if callable(self._images):
+            self._images = self._images()
+        return self._images
 
     def __len__(self):
         n = len(self.images)
@@ -229,11 +239,10 @@ class DataLoaders:
         if name == "synthetic":
             dim = self.dim_image or 64
             ch = self.num_channels or 3
-            train = synthetic_images(256, dim, ch, seed=0)
-            val = synthetic_images(64, dim, ch, seed=1)
-            test = synthetic_images(
-                max(128, int(self.test_n or 0)), dim, ch, seed=2
-            )
+            test_n = max(128, int(self.test_n or 0))
+            train = functools.partial(synthetic_images, 256, dim, ch, seed=0)
+            val = functools.partial(synthetic_images, 64, dim, ch, seed=1)
+            test = functools.partial(synthetic_images, test_n, dim, ch, seed=2)
             return {
                 "train": _ArrayDataset(train, self.batch_size_train, True),
                 "val": _ArrayDataset(val, self.batch_size_test),

@@ -3,8 +3,10 @@
 ``python -m pnpflow_tpu_torch --opts key value ...`` solves an inverse
 problem with the reference's 3-tier config, ``--opts`` overrides and
 ``results/{dataset}/{model}/{problem}/{method}/{split}`` layout.  It runs on
-``cuda`` unless ``--opts device cpu`` is given.  ``--opts bf16 True`` runs
-the U-Net in bfloat16; the default float32 mode turns TF32 off.
+``cuda`` unless ``--opts device cpu`` is given.  ``--opts model rectified``
+runs the NCSN++ (its FIR resampling through the ``upfirdn2d`` kernel);
+``--opts bf16 True`` runs the model in bfloat16; the default float32 mode
+turns TF32 off.
 
 Training (``train True``) and ``compute_metrics True`` are not ported yet.
 """

@@ -18,6 +18,8 @@ channels_last view.  ``fused_norm`` selects the GroupNorm path:
 
 * ``False``: plain PyTorch GroupNorm + swish, plain convolutions;
 * ``True``: every GroupNorm through the ``groupnorm_swish`` kernel;
+* ``"bm"``: every GroupNorm through the two-phase ``groupnorm_swish_bm``
+  kernel;
 * ``"conv"``: every ResidualBlock conv (and the begin conv) through the
   fused ``conv3x3_gn`` kernel, whose prologue applies the preceding
   GroupNorm + swish from the moments the previous kernel emitted.
@@ -40,9 +42,9 @@ import torch.nn.functional as F
 from pnpflow_tpu_torch.ops.fused_conv_gn import (
     channel_moments, concat_moments, conv3x3_gn, gn_prologue)
 from pnpflow_tpu_torch.ops.gn_swish import gn_swish_reference, groupnorm_swish
+from pnpflow_tpu_torch.ops.gn_swish_bm import groupnorm_swish_bm
 
 _NOT_PORTED = {
-    "bm": "ROADMAP queue 2 (groupnorm_swish_bm)",
     "dot": "ROADMAP queue 1, item 15 (XLA-only GroupNorm variants)",
     "bf16stats": "ROADMAP queue 1, item 15 (XLA-only GroupNorm variants)",
     "tview": "ROADMAP queue 1, item 15 (XLA-only GroupNorm variants)",
@@ -54,7 +56,7 @@ def check_fused_norm(fused_norm):
         raise NotImplementedError(
             f"fused_norm={fused_norm!r} is not ported yet: "
             f"{_NOT_PORTED[fused_norm]}")
-    if fused_norm not in (False, True, "conv"):
+    if fused_norm not in (False, True, "bm", "conv"):
         raise ValueError(f"unknown fused_norm {fused_norm!r}")
     return fused_norm
 
@@ -116,6 +118,8 @@ class Conv3x3(nn.Conv2d):
 def _gn(x, norm: nn.GroupNorm, fused, swish: bool):
     if fused is True:
         return groupnorm_swish(x, norm.weight, norm.bias, 32, 1e-6, swish)
+    if fused == "bm":
+        return groupnorm_swish_bm(x, norm.weight, norm.bias, 32, 1e-6, swish)
     return gn_swish_reference(x, norm.weight, norm.bias, 32, 1e-6, swish)
 
 

@@ -29,6 +29,10 @@ SOURCES = {
         "conv3x3_gn_launch",
         [_I] + [_P] * 9 + [_I] * 6 + [_P],
     ),
+    "upfirdn2d": (
+        "upfirdn2d_launch",
+        [_I, _P, _P, ctypes.POINTER(ctypes.c_float)] + [_I] * 10 + [_P],
+    ),
 }
 
 NVCC_FLAGS = [

@@ -33,7 +33,8 @@ import functools
 
 import torch
 
-__all__ = ["groupnorm_swish", "groupnorm_swish_fwd", "gn_swish_reference"]
+__all__ = ["groupnorm_swish", "groupnorm_swish_fwd", "gn_swish_reference",
+           "gn_swish_backward"]
 
 
 def _gn_stats(x, num_groups, eps):
@@ -153,6 +154,31 @@ def groupnorm_swish_fwd(x, scale, bias, num_groups: int = 32,
 groupnorm_swish_fwd.launches = 0
 
 
+def gn_swish_backward(x, scale, bias, num_groups, eps, swish, dy):
+    """Plain copy of ``_gn_swish_vjp_bwd``: (dx, dscale, dbias)."""
+    mean, inv = _gn_stats(x, num_groups, eps)
+    mean, inv = mean[:, None, None, :], inv[:, None, None, :]
+    xhat = (x.float() - mean) * inv
+    dy = dy.float()
+    if swish:
+        ypre = xhat * scale.float() + bias.float()
+        sig = torch.sigmoid(ypre)
+        dy = dy * (sig * (1.0 + ypre * (1.0 - sig)))
+    dscale = (dy * xhat).sum(dim=(0, 1, 2)).to(scale.dtype)
+    dbias = dy.sum(dim=(0, 1, 2)).to(bias.dtype)
+    dxhat = dy * scale.float()
+
+    b, h, w, c = x.shape
+    cg = c // num_groups
+
+    def gmean(a):  # mean over each group's (H, W, Cg) slab
+        m = a.reshape(b, h * w, num_groups, cg).mean(dim=(1, 3))
+        return m.repeat_interleave(cg, dim=1)[:, None, None, :]
+
+    dx = inv * (dxhat - gmean(dxhat) - xhat * gmean(dxhat * xhat))
+    return dx.to(x.dtype), dscale, dbias
+
+
 class _GroupNormSwish(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps, swish):
@@ -162,30 +188,8 @@ class _GroupNormSwish(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        """Plain copy of ``_gn_swish_vjp_bwd``."""
-        x, scale, bias = ctx.saved_tensors
-        num_groups, eps, swish = ctx.cfg
-        mean, inv = _gn_stats(x, num_groups, eps)
-        mean, inv = mean[:, None, None, :], inv[:, None, None, :]
-        xhat = (x.float() - mean) * inv
-        dy = dy.float()
-        if swish:
-            ypre = xhat * scale.float() + bias.float()
-            sig = torch.sigmoid(ypre)
-            dy = dy * (sig * (1.0 + ypre * (1.0 - sig)))
-        dscale = (dy * xhat).sum(dim=(0, 1, 2)).to(scale.dtype)
-        dbias = dy.sum(dim=(0, 1, 2)).to(bias.dtype)
-        dxhat = dy * scale.float()
-
-        b, h, w, c = x.shape
-        cg = c // num_groups
-
-        def gmean(a):  # mean over each group's (H, W, Cg) slab
-            m = a.reshape(b, h * w, num_groups, cg).mean(dim=(1, 3))
-            return m.repeat_interleave(cg, dim=1)[:, None, None, :]
-
-        dx = inv * (dxhat - gmean(dxhat) - xhat * gmean(dxhat * xhat))
-        return dx.to(x.dtype), dscale, dbias, None, None, None
+        return (*gn_swish_backward(*ctx.saved_tensors, *ctx.cfg, dy),
+                None, None, None)
 
 
 def groupnorm_swish(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,

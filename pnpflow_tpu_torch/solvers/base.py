@@ -22,28 +22,41 @@ from pnpflow_tpu_torch.utils.config import get_save_path_ip
 
 @dataclass
 class ModelBundle:
-    """A velocity model on its device: ``forward(x_nhwc, t_vec) -> v``."""
+    """A velocity model on its device: ``forward(x_nhwc, t_vec) -> v``.
+
+    For ``kind == "rectified"`` the model is the NCSN++ behind its adapter,
+    which already scales t by 999."""
 
     model: torch.nn.Module
     device: torch.device = torch.device("cpu")
+    kind: str = "ot"
 
     def forward(self, x, t):
         return self.model(x, t)
 
 
-def measure(H, clean, sigma_noise, noise_type, batch: int):
-    """y = H(clean) + sigma * noise, noise from a generator seeded
-    ``batch`` on clean's device."""
-    gen = torch.Generator(device=clean.device).manual_seed(int(batch))
-    y = H(clean)
+def draw_noise(shape, noise_type, generator, device, dtype):
+    """Standard gaussian or laplace (scale 1: the difference of two unit
+    exponentials) noise from ``generator``."""
     if noise_type == "gaussian":
-        noise = torch.randn(y.shape, generator=gen, device=y.device,
-                            dtype=y.dtype)
-        return y + sigma_noise * noise
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=dtype)
     if noise_type == "laplace":
-        raise NotImplementedError(
-            "laplace noise is not ported yet (ROADMAP queue 1, item 6)")
+        e = torch.empty((2, *shape), device=device, dtype=dtype)
+        e.exponential_(generator=generator)
+        return e[0] - e[1]
     raise ValueError("Noise type not supported")
+
+
+def measure(H, clean, sigma_noise, noise_type, batch: int, noise=None):
+    """y = H(clean) + sigma * noise, noise from a generator seeded
+    ``batch`` on clean's device, or the given ``noise`` (the verification
+    seam: both packages then see the same measurement)."""
+    y = H(clean)
+    if noise is None:
+        gen = torch.Generator(device=clean.device).manual_seed(int(batch))
+        noise = draw_noise(y.shape, noise_type, gen, y.device, y.dtype)
+    return y + sigma_noise * noise
 
 
 def peak_memory_info(device) -> tuple:
@@ -95,12 +108,10 @@ class Solver:
                                 args.noise_type, batch)
 
             def report_cb(x, iteration):
-                reporting.compute_psnr(clean_img, noisy_img, x, args,
-                                       iter=iteration)
-                reporting.compute_ssim(clean_img, noisy_img, x, args,
-                                       iter=iteration)
-                reporting.compute_lpips(clean_img, noisy_img, x, args,
-                                        iter=iteration)
+                for fn in (reporting.compute_psnr, reporting.compute_ssim,
+                           reporting.compute_lpips):
+                    fn(clean_img, noisy_img, x, args, degradation.H_adj,
+                       iter=iteration)
 
             if on_cuda:
                 torch.cuda.synchronize(dev)
@@ -124,7 +135,7 @@ class Solver:
 
             if args.save_results:
                 reporting.save_images(clean_img, noisy_img, x, args,
-                                      iter="final")
+                                      degradation.H_adj, iter="final")
                 report_cb(x, last_iter)
 
         # averaging reads per-batch files for range(max_batch); clamp to the

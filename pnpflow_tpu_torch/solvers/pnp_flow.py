@@ -2,10 +2,12 @@
 
 For time steps t = i/N, i = 0..N-1:
 
-  1. data-fidelity gradient step (gaussian noise):
-       z = x - gamma(t) * H_adj(H x - y) / sigma^2, with the learning rate
-       pre-scaled by sigma^2, so the effective step is
+  1. data-fidelity gradient step:
+       gaussian: z = x - gamma(t) * H_adj(H x - y) / sigma^2, with the
+       learning rate pre-scaled by sigma^2, so the effective step is
        gamma(t) * lr_pnp * H_adj(Hx - y);
+       laplace: the subgradient H_adj(2 * heaviside(Hx - y, 0) - 1) / sigma
+       of ||Hx - y||_1, the learning rate pre-scaled by sigma;
   2. Monte-Carlo averaged flow denoiser: num_samples draws of
        z~ = t z + (1-t) eps,   D(z~, t) = z~ + (1-t) v(z~, t), averaged.
 
@@ -44,12 +46,19 @@ def make_pnp_flow_solver(model_fn, H, H_adj, *, steps: int, num_samples: int,
     seam: a tensor ``(steps, num_samples, b, h, w, c)`` holding the MC noise
     of every global iteration, in place of draws from ``generator``.
     """
-    if noise_type != "gaussian":
-        raise NotImplementedError(
-            "laplace noise is not ported yet (ROADMAP queue 1, item 6)")
+    if noise_type == "gaussian":
+        lr = np.float32(sigma_noise**2 * lr_pnp)
+    elif noise_type == "laplace":
+        lr = np.float32(sigma_noise * lr_pnp)
+    else:
+        raise ValueError("Noise type not supported")
     delta = np.float32(1.0 / steps)
-    lr = np.float32(sigma_noise**2 * lr_pnp)
-    var = sigma_noise**2
+
+    def grad_datafit(x, y):
+        r = H(x) - y
+        if noise_type == "gaussian":
+            return H_adj(r) / sigma_noise**2
+        return H_adj(2.0 * (r > 0).to(r.dtype) - 1.0) / sigma_noise
 
     def denoise_mc(z, t, generator, global_iter):
         b, h, w, c = z.shape
@@ -69,7 +78,7 @@ def make_pnp_flow_solver(model_fn, H, H_adj, *, steps: int, num_samples: int,
         for i in range(start_iter, start_iter + n_iters):
             t = np.float32(i) * delta
             lr_t = float(_gamma(gamma_style, lr, t, alpha))
-            z = x - lr_t * (H_adj(H(x) - y) / var)
+            z = x - lr_t * grad_datafit(x, y)
             x = denoise_mc(z, t, generator, i)
         return x
 

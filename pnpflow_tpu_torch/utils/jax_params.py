@@ -1,9 +1,11 @@
-"""Carry a JAX ``VelocityUNet`` parameter tree into the port.
+"""Carry a JAX ``VelocityUNet`` or ``NCSNpp`` parameter tree into the port.
 
-The inverse of ``pnpflow_tpu/utils/torch_convert.py:convert_unet_state_dict``:
-a flax tree (``{"params": ...}`` of numpy arrays) becomes a ``state_dict`` in
-the reference torch layout that :class:`~pnpflow_tpu_torch.models.unet.
-VelocityUNet` uses.
+:func:`state_dict_from_flax` is the inverse of
+``pnpflow_tpu/utils/torch_convert.py:convert_unet_state_dict``, and
+:func:`ncsnpp_state_dict_from_flax` that of
+``pnpflow_tpu/utils/ncsnpp_convert.py:convert_ncsnpp_state_dict``: a flax
+tree (``{"params": ...}`` of numpy arrays) becomes a ``state_dict`` in the
+reference torch layout that the port's modules use.
 
   flax Conv kernel (kH, kW, I, O) -> torch Conv2d weight (O, I, kH, kW)
   flax Dense kernel (in, out)     -> torch Linear weight (out, in)
@@ -84,3 +86,50 @@ def state_dict_from_flax(params) -> dict:
                 out[f"{prefix}.{key}"] = arr
     # np.array copies: leaves from JAX are read-only views
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def _ncsnpp_leaf(name: str, value) -> tuple:
+    """flax NCSN++ leaf -> (torch suffix, array): the inverse of
+    ``pnpflow_tpu/utils/ncsnpp_convert.py:_translate_leaf``."""
+    v = np.asarray(value, dtype=np.float32)
+    if name == "kernel":
+        return "weight", v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+    if name == "scale":
+        return "weight", v
+    if name == "bias":
+        return "bias", v
+    if name == "Conv2d_0_weight":
+        return "Conv2d_0.weight", v.transpose(3, 2, 0, 1)
+    if name == "Conv2d_0_bias":
+        return "Conv2d_0.bias", v
+    if name in ("W", "b"):
+        return name, v
+    raise KeyError(f"unknown NCSN++ parameter leaf {name!r}")
+
+
+def ncsnpp_state_dict_from_flax(params, sigmas=None) -> dict:
+    """flax NCSN++ ``{"params": tree}`` (or the bare tree) -> torch
+    ``state_dict`` in the reference layout (``all_modules.{i}.<path>``).
+
+    Module ``m{i}`` becomes ``all_modules.{i}``; nested flax module names
+    (``GroupNorm_0``, ``NIN_3``, ...) are kept.  The flax tree has no
+    ``sigmas`` table; pass the module's (``model.sigmas``) to include it, so
+    the result loads with ``load_state_dict(strict=True)``."""
+    tree = params.get("params", params)
+    out = {}
+
+    def walk(node, path):
+        for name, child in node.items():
+            if isinstance(child, dict):
+                walk(child, path + (name,))
+                continue
+            if not path or not re.fullmatch(r"m\d+", path[0]):
+                raise KeyError(f"unrecognized NCSN++ module {path + (name,)}")
+            suffix, arr = _ncsnpp_leaf(name, child)
+            key = ".".join(("all_modules", path[0][1:]) + path[1:] + (suffix,))
+            out[key] = torch.from_numpy(np.array(arr))
+
+    walk(tree, ())
+    if sigmas is not None:
+        out["sigmas"] = torch.as_tensor(sigmas, dtype=torch.float32).cpu()
+    return out

@@ -26,8 +26,21 @@ from pnpflow_tpu_torch.metrics.image_quality import psnr as _psnr
 from pnpflow_tpu_torch.metrics.image_quality import ssim as _ssim
 
 
+_SR_PROBLEMS = ("superresolution", "superresolution_bicubic")
+
+
 def _host(img):
     return img.detach().to("cpu", torch.float32)
+
+
+def _noisy_view(noisy_img, args, H_adj):
+    """The measurement as an image: super-resolution measurements are
+    smaller than the image, so they are shown through ``H_adj``."""
+    if getattr(args, "problem", None) in _SR_PROBLEMS:
+        if H_adj is None:
+            raise ValueError(f"{args.problem} reporting needs H_adj")
+        return H_adj(noisy_img)
+    return noisy_img
 
 
 def _metric_pair(metric_fn, clean_img, noisy_img, rec_img):
@@ -43,8 +56,10 @@ def _append(path, line):
         f.write(line + "\n")
 
 
-def _report(name, metric_fn, clean_img, noisy_img, rec_img, args, iter):
-    rec, noisy = _metric_pair(metric_fn, clean_img, noisy_img, rec_img)
+def _report(name, metric_fn, clean_img, noisy_img, rec_img, args, H_adj,
+            iter):
+    rec, noisy = _metric_pair(metric_fn, clean_img,
+                              _noisy_view(noisy_img, args, H_adj), rec_img)
     for word, value in (("rec", rec), ("noisy", noisy)):
         _append(
             os.path.join(args.save_path_ip,
@@ -54,15 +69,20 @@ def _report(name, metric_fn, clean_img, noisy_img, rec_img, args, iter):
     return rec
 
 
-def compute_psnr(clean_img, noisy_img, rec_img, args, iter="final"):
-    return _report("psnr", _psnr, clean_img, noisy_img, rec_img, args, iter)
+def compute_psnr(clean_img, noisy_img, rec_img, args, H_adj=None,
+                 iter="final"):
+    return _report("psnr", _psnr, clean_img, noisy_img, rec_img, args, H_adj,
+                   iter)
 
 
-def compute_ssim(clean_img, noisy_img, rec_img, args, iter="final"):
-    return _report("ssim", _ssim, clean_img, noisy_img, rec_img, args, iter)
+def compute_ssim(clean_img, noisy_img, rec_img, args, H_adj=None,
+                 iter="final"):
+    return _report("ssim", _ssim, clean_img, noisy_img, rec_img, args, H_adj,
+                   iter)
 
 
-def compute_lpips(clean_img, noisy_img, rec_img, args, iter="final"):
+def compute_lpips(clean_img, noisy_img, rec_img, args, H_adj=None,
+                  iter="final"):
     """LPIPS needs converted AlexNet weights at
     ``{output_root}/model/lpips_alex.npz``: without them it is skipped with
     a warning; with them it raises, since the LPIPS network is not ported
@@ -242,11 +262,12 @@ def _save_eps(args, clean, noisy, rec, iter):
             p, args.method, args.batch, i, iter, psnr_of(clean[i], rec[i])))
 
 
-def save_images(clean_img, noisy_img, rec_img, args, iter="final"):
+def save_images(clean_img, noisy_img, rec_img, args, H_adj=None,
+                iter="final"):
     """Final clean / noisy / restored grids as PNG, plus per-image .eps
     files for the first test batches (batch < 4)."""
     clean = (_host(clean_img).numpy() + 1.0) / 2.0
-    noisy = (_host(noisy_img).numpy() + 1.0) / 2.0
+    noisy = (_host(_noisy_view(noisy_img, args, H_adj)).numpy() + 1.0) / 2.0
     rec = (_host(rec_img).numpy() + 1.0) / 2.0
     if getattr(args, "eval_split", None) == "test" and args.batch < 4:
         _save_eps(args, clean, noisy, rec, iter)

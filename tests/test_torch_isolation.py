@@ -59,6 +59,13 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
         build_model_bundle(args)
     with pytest.raises(RuntimeError):
         main(["--opts", "dataset", "synthetic", "output_root", str(tmp_path)])
+    args.model, args.dim_image = "rectified", 256
+    with pytest.raises(RuntimeError):
+        build_model_bundle(args)
+    with pytest.raises(RuntimeError):
+        main(["--opts", "dataset", "synthetic", "model", "rectified",
+              "dim_image", "256", "fused_norm", "bm",
+              "output_root", str(tmp_path)])
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -1,8 +1,8 @@
 """The port's velocity U-Net against the JAX ``VelocityUNet`` on the same
 parameters (carried across with ``state_dict_from_flax``) and inputs.
 
-Bounds: ``fused_norm`` False / True within atol 5e-5 (the bound the JAX
-package holds its fused norm to); ``"conv"`` within 1e-4 relative to
+Bounds: ``fused_norm`` False / True / "bm" within atol 5e-5 (the bound the
+JAX package holds its fused norms to); ``"conv"`` within 1e-4 relative to
 max|v| (the JAX fused-conv bound); bf16 within 3e-2 relative (bf16 keeps
 8 mantissa bits and the two frameworks round at different places).
 """
@@ -77,12 +77,14 @@ def _port(cfg, params, fused, dtype=torch.float32):
 
 @pytest.mark.parametrize("name,cfg,batch", [
     ("small", SMALL, 2), ("flagship", FLAGSHIP, 2)])
-@pytest.mark.parametrize("fused", [False, True, "conv"])
+@pytest.mark.parametrize("fused", [False, True, "bm", "conv"])
 def test_forward_matches_jax(name, cfg, batch, fused):
     params, x, t, want = _jax_forward(name, cfg, batch, fused)
     with torch.no_grad():
-        got = _port(cfg, params, fused)(torch.from_numpy(x),
-                                         torch.from_numpy(t)).numpy()
+        out = _port(cfg, params, fused)(torch.from_numpy(x),
+                                        torch.from_numpy(t))
+    assert out.is_contiguous()
+    got = out.numpy()
     assert got.shape == want.shape and got.dtype == np.float32
     if fused == "conv":
         rel = np.abs(got - want).max() / np.abs(want).max()
@@ -138,7 +140,7 @@ def test_kernel_weight_cache_follows_load_state_dict():
     assert not torch.equal(w1, w0)
 
 
-@pytest.mark.parametrize("mode", ["bm", "dot", "bf16stats", "tview"])
+@pytest.mark.parametrize("mode", ["dot", "bf16stats", "tview"])
 def test_unported_norm_modes_raise(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VelocityUNet(**SMALL, fused_norm=mode)
@@ -163,6 +165,71 @@ def test_registry_resolves_pt_then_refuses_msgpack(tmp_path):
     got = load_params(define_model(args), args)
     for k, v in got.state_dict().items():
         assert torch.equal(v, sd[k]), k
+    # a msgpack takes precedence over the .pt; one that cannot be read is
+    # refused, not passed over
     open(paths["msgpack"], "wb").close()
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    with pytest.raises(ValueError, match="msgpack"):
         load_params(define_model(args), args)
+
+
+def test_bm_mode_uses_its_kernel_wrapper_and_keeps_the_layout(monkeypatch):
+    """Under "bm" every GroupNorm goes through ``groupnorm_swish_bm``, at the
+    sites where True uses ``groupnorm_swish``, and nothing else normalizes."""
+    import pnpflow_tpu_torch.models.unet as unet_mod
+
+    calls = {}
+
+    def counted(name):
+        real = getattr(unet_mod, name)
+
+        def wrapper(x, *args):
+            calls[name] = calls.get(name, 0) + 1
+            assert x.is_contiguous()
+            return real(x, *args)
+        return wrapper
+
+    for name in ("groupnorm_swish", "groupnorm_swish_bm",
+                 "gn_swish_reference"):
+        monkeypatch.setattr(unet_mod, name, counted(name))
+    x = torch.randn(1, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    t = torch.full((1,), 0.5)
+    per_mode = {}
+    for mode in (True, "bm"):
+        calls.clear()
+        m = VelocityUNet(**SMALL, fused_norm=mode).eval()
+        assert m.fused_norm == mode and m.mid_modules[1].fused_norm == mode
+        with torch.no_grad():
+            assert m(x, t).is_contiguous()
+        per_mode[mode] = dict(calls)
+    sites = per_mode[True]["groupnorm_swish"]
+    assert sites > 0 and per_mode[True] == {"groupnorm_swish": sites}
+    assert per_mode["bm"] == {"groupnorm_swish_bm": sites}
+
+
+@pytest.mark.parametrize("form", ["envelope", "legacy"])
+def test_registry_reads_jax_msgpack(tmp_path, form):
+    """A checkpoint the JAX package writes (``save_params_file`` with its
+    fingerprint, or flax's raw ``to_bytes``) loads into the port's flagship
+    U-Net and gives JAX's forward."""
+    from flax import serialization
+    from pnpflow_tpu.models import registry as jreg
+    from pnpflow_tpu_torch.models.registry import (
+        checkpoint_paths, define_model, load_params)
+    from pnpflow_tpu_torch.utils.config import CfgNode
+
+    params, x, t, want = _jax_forward("flagship", FLAGSHIP, 2, False)
+    args = CfgNode(dict(model="ot", dim_image=16, num_channels=3,
+                        dataset="synthetic", output_root=str(tmp_path),
+                        seed=0, fused_norm=False))
+    path = checkpoint_paths(args)["msgpack"]
+    if form == "envelope":
+        fp = jreg.model_fingerprint(jreg.define_model(args), args)
+        jreg.save_params_file(params, path, fingerprint=fp)
+    else:
+        (tmp_path / "model" / "synthetic" / "ot").mkdir(parents=True)
+        with open(path, "wb") as f:
+            f.write(serialization.to_bytes(params))
+    m = load_params(define_model(args), args, require=True)
+    with torch.no_grad():
+        got = m.eval()(torch.from_numpy(x), torch.from_numpy(t)).numpy()
+    np.testing.assert_allclose(got, want, rtol=5e-5, atol=5e-5)
