@@ -14,7 +14,8 @@ failure (nothing is caught and passed over) and prints its seconds:
    attention at 16);
 4. kernel parity: each kernel against its plain PyTorch version at every
    site, at the main-path batch of 20 images, in float32 and bf16, plus
-   every epilogue combination of the conv kernel;
+   every epilogue combination of the conv kernel, which must also repeat
+   bit for bit;
 5. model parity: the random flagship U-Net with ``fused_norm`` True, "bm"
    and "conv" against False, and the random NCSN++ 256^2 on the card
    against the same weights on the CPU;
@@ -25,7 +26,8 @@ failure (nothing is caught and passed over) and prints its seconds:
    0 before each run and read after;
 7. timing: CUDA-event times of each kernel, its plain version and the
    PyTorch library call, per forward at the bench shapes (U-Net: 64x64, 64
-   images x 5 Monte-Carlo samples; NCSN++: 256x256, 4 x 5), the forwards
+   images x 5 Monte-Carlo samples, and for conv3x3_gn also the main-path
+   20; NCSN++: 256x256, 4 x 5), the forwards
    per mode, PnP steps and the peak memory of a rectified step, with a
    torch.profiler kernel breakdown of one float32 NCSN++ forward.
 
@@ -47,7 +49,7 @@ from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MEM_BW = 3.35e12                     # H100 SXM HBM3 bytes/s
-PEAK = {"float32": 67e12, "bfloat16": 989e12}   # FLOP/s, dense
+PEAK = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}  # FLOP/s, dense
 FLAGSHIP = dict(input_channels=3, input_height=64, ch=32,
                 ch_mult=(1, 2, 4, 8), num_res_blocks=6,
                 attn_resolutions=(16, 8))
@@ -303,6 +305,9 @@ def kernel_parity(torch, dev, gn_sites, conv_sites, firs):
                               f"err {dm} (max {ref})")
                 else:
                     check(m is None, "moments returned when not asked")
+                y3, m3 = conv3x3_gn(*args, emit_moments=emit_m, **kw)
+                check(torch.equal(y, y3) and (m is None or torch.equal(m, m3)),
+                      f"conv3x3_gn {dtype} at {site}: not bit-for-bit")
                 if dtype == torch.float32:
                     err["conv3x3_gn"] = max(err["conv3x3_gn"], d)
 
@@ -557,14 +562,18 @@ def time_gn_bm(torch, dev, gn_sites, dtype):
     return time_gn(torch, dev, gn_sites, dtype, bm=True)
 
 
-def time_conv(torch, dev, conv_sites, dtype):
+def time_conv(torch, dev, conv_sites, dtype, n=BENCH_BATCH):
+    """Per-forward times at batch n.  The operations bound in float32 is
+    the least time for fp32-accurate products: the CUDA cores' rate, or
+    three TF32 tensor-core products per product (3xTF32), whichever is
+    less."""
     import torch.nn.functional as F
     from pnpflow_tpu_torch.ops.fused_conv_gn import (
         conv3x3_gn, conv3x3_gn_reference)
 
-    n, item = BENCH_BATCH, torch.finfo(dtype).bits // 8
+    item = torch.finfo(dtype).bits // 8
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
-           "ops_ms": 0.0}
+           "ops_ms": 0.0, "by_site": {}}
     for site, k in Counter(conv_sites).items():
         h, cin, cout, pro, sb, res = site
         args, kw = conv_inputs(torch, dev, n, site, dtype, 0)
@@ -572,17 +581,26 @@ def time_conv(torch, dev, conv_sites, dtype):
         x_nchw = x.permute(0, 3, 1, 2)
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         b_lib = b.to(dtype)
-        tot["ms"] += k * cuda_ms(torch, lambda: conv3x3_gn(*args, **kw), 3)
+        ms = cuda_ms(torch, lambda: conv3x3_gn(*args, **kw), 3)
+        lib_ms = cuda_ms(
+            torch, lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1))
+        # (h, cin, cout, prologue, sample bias, residual): launches, kernel
+        # ms and library ms for all of them
+        tot["by_site"]["/".join(str(int(v)) for v in site)] = [
+            k, k * ms, k * lib_ms]
+        tot["ms"] += k * ms
         tot["plain_ms"] += k * cuda_ms(
             torch, lambda: conv3x3_gn_reference(*args, **kw), 2)
-        tot["library_ms"] += k * cuda_ms(
-            torch, lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1))
+        tot["library_ms"] += k * lib_ms
         px = n * h * h
         nbytes = (px * cin + 9 * cin * cout + px * cout * (2 if res else 1)) \
             * item + 4 * (n * 2 * cout + (2 * n * cin if pro else 0)
                           + (n * cout if sb else 0) + cout)
         tot["bytes_ms"] += k * 1e3 * nbytes / MEM_BW
-        tot["ops_ms"] += k * 1e3 * 2 * px * 9 * cin * cout / PEAK[str(dtype)[6:]]
+        flop = 2 * px * 9 * cin * cout
+        tot["ops_ms"] += k * 1e3 * (
+            flop / PEAK["bfloat16"] if dtype == torch.bfloat16
+            else min(flop / PEAK["float32"], 3 * flop / PEAK["tf32"]))
     return tot
 
 
@@ -667,6 +685,16 @@ def kernel_rows(torch, dev, sites, launches, err):
         emit({"kernel_timing": name, "per_forward": True,
               "launches_per_forward": len(sites[key]), "batch": batch,
               **{dt: {k: v for k, v in d.items()} for dt, d in per.items()}})
+        if name == "conv3x3_gn":
+            with phase("timing/conv3x3_gn_main_batch"):
+                main = {}
+                for dtype in (torch.float32, torch.bfloat16):
+                    with torch.inference_mode():
+                        main[str(dtype)[6:]] = time_conv(
+                            torch, dev, sites[key], dtype, n=MAIN_BATCH)
+            emit({"kernel_timing": name, "per_forward": True,
+                  "launches_per_forward": len(sites[key]),
+                  "batch": MAIN_BATCH, **main})
     return kernels
 
 

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a plain-C shared library and loaded with ``ctypes``.  Libraries go to
 ``build/kernels/`` at the repository root, named by a hash of their source,
-so an edited source is rebuilt and an unchanged one is reused.  Nothing is
+every ``csrc/*.cuh`` header and the nvcc flags, so an edited source, header
+or flag is rebuilt and an unchanged one is reused.  Nothing is
 built when a module is imported: the first call that needs a library builds
 it.
 """
@@ -27,7 +28,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {
     "conv3x3_gn": (
         "conv3x3_gn_launch",
-        [_I] + [_P] * 9 + [_I] * 6 + [_P],
+        [_I] + [_P] * 10 + [_I] * 9 + [_P],
     ),
     "upfirdn2d": (
         "upfirdn2d_launch",
@@ -55,9 +56,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict:

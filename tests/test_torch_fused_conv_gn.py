@@ -5,6 +5,9 @@ the JAX helpers.
 Bounds: y max-abs < 1e-4 and moments < 5e-2 at float32 (the JAX package's
 kernel-vs-XLA bounds); at bf16, y < 5e-2 and moments < 1.0 (the JAX bf16
 test's bounds: moments sum 64 bf16-rounded values); helpers 1e-5.
+
+Also the wrapper's host logic, which runs here as it runs on the card: its
+argument checks, and the launch plan over every flagship site.
 """
 
 import itertools
@@ -15,8 +18,11 @@ import pytest
 import torch
 
 from pnpflow_tpu.ops import fused_conv_gn as jfc
+from pnpflow_tpu_torch.models import unet as unet_mod
+from pnpflow_tpu_torch.ops import fused_conv_gn as pfc
 from pnpflow_tpu_torch.ops.fused_conv_gn import (
-    channel_moments, concat_moments, conv3x3_gn, gn_prologue)
+    SMS, channel_moments, concat_moments, conv3x3_gn, gn_prologue,
+    launch_plan)
 
 N, H, W = 2, 8, 8
 
@@ -130,3 +136,112 @@ def test_cpu_path_does_not_count_launches():
     before = conv3x3_gn.launches
     _run(conv3x3_gn, arrs, torch.from_numpy, torch.float32)
     assert conv3x3_gn.launches == before
+
+
+def _args(n=2, h=8, c=32, co=32, dtype=torch.float32):
+    x = torch.randn(n, h, h, c).to(dtype)
+    w = torch.randn(3, 3, c, co).to(dtype)
+    return x, w, torch.zeros(co)
+
+
+BAD_ARGS = {
+    "x not contiguous": (lambda x, w, b: ((x.permute(0, 2, 1, 3), w, b), {}),
+                         ValueError),
+    "w dtype": (lambda x, w, b: ((x, w.double(), b), {}), ValueError),
+    "w shape": (lambda x, w, b: ((x, w[:, :, :16], b), {}), ValueError),
+    "b dtype": (lambda x, w, b: ((x, w, b.double()), {}), ValueError),
+    "fp16": (lambda x, w, b: ((x.half(), w.half(), b), {}), TypeError),
+    "x not NHWC": (lambda x, w, b: ((x[0], w, b), {}), ValueError),
+    "prologue shape": (lambda x, w, b: (
+        (x, w, b), {"prologue": (torch.ones(2, 16), torch.ones(2, 16))}),
+        ValueError),
+    "sample_bias dtype": (lambda x, w, b: (
+        (x, w, b), {"sample_bias": torch.ones(2, 32).double()}), ValueError),
+    "residual not contiguous": (lambda x, w, b: (
+        (x, w, b), {"residual": torch.ones(2, 8, 8, 32).transpose(1, 2)}),
+        ValueError),
+    "CO not a multiple of 32": (lambda x, w, b: (
+        (x, w[..., :16].contiguous(), b[:16]), {}), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_ARGS))
+def test_checks_arguments_on_the_cpu_as_the_card_would(case):
+    """A CPU run refuses what the kernel would refuse, before it takes the
+    plain version."""
+    make, err = BAD_ARGS[case]
+    args, kw = make(*_args())
+    with pytest.raises(err):
+        conv3x3_gn(*args, **kw)
+
+
+@pytest.fixture(scope="module")
+def flagship_sites():
+    """(h, w, cin, cout) of the 109 conv3x3_gn calls of one flagship U-Net
+    forward (64x64, ch 32, mult 1,2,4,8, 6 blocks, attention at 16 and 8),
+    recorded from a batch-1 CPU forward."""
+    sites = []
+    real = unet_mod.conv3x3_gn
+
+    def record(x, w, b, **kw):
+        sites.append((x.shape[1], x.shape[2], x.shape[3], w.shape[3]))
+        return real(x, w, b, **kw)
+
+    m = unet_mod.VelocityUNet(input_height=64, fused_norm="conv").eval()
+    unet_mod.conv3x3_gn = record
+    try:
+        with torch.inference_mode():
+            m(torch.zeros(1, 64, 64, 3), torch.zeros(1))
+    finally:
+        unet_mod.conv3x3_gn = real
+    assert len(sites) == 109
+    return sites
+
+
+@pytest.mark.parametrize("n", [20, 320])
+def test_launch_plan_covers_each_output_once_within_one_sample(
+        flagship_sites, n):
+    for h, w, _, co in sorted(set(flagship_sites)):
+        plan = launch_plan(n, h, w, co)
+        bid = np.arange(plan.blocks(n, co))
+        s, y0, x0, co0 = plan.tile(bid, co)
+        m = np.arange(plan.bm)
+        yy = y0[:, None] + m // plan.tw
+        xx = x0[:, None] + m % plan.tw
+        inside = (yy < h) & (xx < w)
+        # a tile starts inside its sample, and its pixels are the sample's
+        assert (s < n).all() and (y0 < h).all() and (x0 < w).all()
+        flat = (s[:, None] * h + yy) * w + xx
+        assert (flat[inside] // (h * w) == np.broadcast_to(
+            s[:, None], yy.shape)[inside]).all()
+        counts = np.zeros((n, h, w, co // plan.bn), np.int32)
+        np.add.at(counts, (np.broadcast_to(s[:, None], yy.shape)[inside],
+                           yy[inside], xx[inside],
+                           np.broadcast_to((co0 // plan.bn)[:, None],
+                                           yy.shape)[inside]), 1)
+        assert (counts == 1).all(), (h, w, co, plan)
+
+
+@pytest.mark.parametrize("n", [20, 320])
+def test_launch_plan_fills_the_card(flagship_sites, n):
+    """Every site gets at least one block per SM wherever it has that many
+    64-pixel x 32-channel tiles."""
+    for h, w, _, co in set(flagship_sites):
+        plan = launch_plan(n, h, w, co)
+        small_tiles = n * -(-h * w // 64) * (co // 32)
+        assert plan.blocks(n, co) >= min(SMS, small_tiles), (h, w, co, plan)
+        assert (plan.bm, plan.bn) in pfc.TILES and co % plan.bn == 0
+        assert plan.bm % plan.tw == 0 and plan.tw <= w
+
+
+@pytest.mark.parametrize("h,w", [(7, 7), (5, 96), (64, 200), (1, 1)])
+def test_launch_plan_covers_ragged_images(h, w):
+    n, co = 3, 64
+    plan = launch_plan(n, h, w, co)
+    s, y0, x0, _ = plan.tile(np.arange(plan.blocks(n, co)), co)
+    m = np.arange(plan.bm)
+    yy, xx = y0[:, None] + m // plan.tw, x0[:, None] + m % plan.tw
+    inside = (yy < h) & (xx < w)
+    flat = ((s[:, None] * h + yy) * w + xx)[inside]
+    assert np.bincount(flat, minlength=n * h * w).tolist() == \
+        [co // plan.bn] * (n * h * w)

@@ -57,13 +57,21 @@ def test_groupnorm_swish_backward_on_card(cuda):
     assert torch.isfinite(x.grad).all()
 
 
-@pytest.mark.parametrize("flags", range(8))
+# (batch, size, C, CO, flags): every epilogue combination at one shape,
+# then flagship sites that exercise the tiling -- the 3-channel begin conv,
+# the 8x8 (C -> 256) sites at the main-path batch, and 64x64 at batch 20
+CONV_CASES = [(3, 16, 64, 128, f) for f in range(8)] + [
+    (20, 64, 3, 32, 0), (20, 8, 96, 256, 5), (20, 8, 384, 256, 5),
+    (20, 8, 512, 256, 5), (20, 64, 32, 32, 3), (20, 64, 96, 32, 5)]
+
+
+@pytest.mark.parametrize("n,h,c,co,flags", CONV_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv3x3_gn_kernel(cuda, flags, dtype):
-    n, h, c, co = 3, 16, 64, 128
-    g = torch.Generator(device=cuda).manual_seed(flags)
+def test_conv3x3_gn_kernel(cuda, n, h, c, co, flags, dtype):
+    g = torch.Generator(device=cuda).manual_seed(flags + c)
     x = torch.randn(n, h, h, c, generator=g, device=cuda).to(dtype)
-    w = (torch.randn(3, 3, c, co, generator=g, device=cuda) / 24).to(dtype)
+    w = (torch.randn(3, 3, c, co, generator=g, device=cuda)
+         / (9 * c) ** 0.5).to(dtype)
     b = torch.randn(co, generator=g, device=cuda) * 0.1
     kw = {}
     if flags & 1:
@@ -75,13 +83,48 @@ def test_conv3x3_gn_kernel(cuda, flags, dtype):
     if flags & 4:
         kw["residual"] = torch.randn(n, h, h, co, generator=g,
                                      device=cuda).to(dtype)
+    before = conv3x3_gn.launches
     y, m = conv3x3_gn(x, w, b, **kw)
     torch.cuda.synchronize()
+    assert conv3x3_gn.launches == before + 1
     y2, m2 = conv3x3_gn_reference(x, w, b, **kw)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     scale = float(y2.float().abs().max())
     assert float((y.float() - y2.float()).abs().max()) <= tol * scale
-    assert float((m - m2).abs().max()) <= tol * float(m2.abs().max())
+    for k in range(2):
+        assert (float((m[:, k] - m2[:, k]).abs().max())
+                <= tol * float(m2[:, k].abs().max()))
+    # no atomics: output and moments repeat bit for bit
+    y3, m3 = conv3x3_gn(x, w, b, **kw)
+    assert torch.equal(y, y3) and torch.equal(m, m3)
+
+
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (3, 7, 12, 40, 64),      # ragged tiles, a partial last channel chunk
+    (2, 5, 96, 72, 32),      # rows wider than a tile: 64-column tiles
+    (2, 9, 9, 37, 64),       # C the 16-byte copies cannot take: scalar loads
+    (1, 1, 1, 8, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_gn_kernel_ragged_shapes(cuda, n, h, w, c, co, dtype):
+    g = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn(n, h, w, c, generator=g, device=cuda).to(dtype)
+    wt = (torch.randn(3, 3, c, co, generator=g, device=cuda)
+          / (9 * c) ** 0.5).to(dtype)
+    b = torch.randn(co, generator=g, device=cuda) * 0.1
+    kw = dict(prologue=(torch.rand(n, c, generator=g, device=cuda) + 0.5,
+                        torch.randn(n, c, generator=g, device=cuda)),
+              sample_bias=torch.randn(n, co, generator=g, device=cuda),
+              residual=torch.randn(n, h, w, co, generator=g,
+                                   device=cuda).to(dtype))
+    y, m = conv3x3_gn(x, wt, b, **kw)
+    torch.cuda.synchronize()
+    y2, m2 = conv3x3_gn_reference(x, wt, b, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    scale = float(y2.float().abs().max())
+    assert float((y.float() - y2.float()).abs().max()) <= tol * scale
+    for k in range(2):
+        assert (float((m[:, k] - m2[:, k]).abs().max())
+                <= tol * float(m2[:, k].abs().max()))
 
 
 def test_conv3x3_gn_rejects_what_it_cannot_take(cuda):
