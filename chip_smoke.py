@@ -14,8 +14,10 @@ failure (nothing is caught and passed over) and prints its seconds:
    attention at 16);
 4. kernel parity: each kernel against its plain PyTorch version at every
    site, at the main-path batch of 20 images, in float32 and bf16, plus
-   every epilogue combination of the conv kernel, which must also repeat
-   bit for bit;
+   every epilogue combination of the conv kernel and, for both GroupNorm
+   entries, the 128x128 U-Net's sites at 4 images (where float32 samples
+   of 64 and 96 channels fit no cluster and take the two-phase path); the
+   conv and GroupNorm kernels must also repeat bit for bit;
 5. model parity: the random flagship U-Net with ``fused_norm`` True, "bm"
    and "conv" against False, and the random NCSN++ 256^2 on the card
    against the same weights on the CPU;
@@ -26,10 +28,14 @@ failure (nothing is caught and passed over) and prints its seconds:
    0 before each run and read after;
 7. timing: CUDA-event times of each kernel, its plain version and the
    PyTorch library call, per forward at the bench shapes (U-Net: 64x64, 64
-   images x 5 Monte-Carlo samples, and for conv3x3_gn also the main-path
-   20; NCSN++: 256x256, 4 x 5), the forwards
-   per mode, PnP steps and the peak memory of a rectified step, with a
-   torch.profiler kernel breakdown of one float32 NCSN++ forward.
+   images x 5 Monte-Carlo samples, and for conv3x3_gn and both GroupNorm
+   entries also the main-path 20; NCSN++: 256x256, 4 x 5), the forwards
+   per mode (median of 5), PnP steps and the peak memory of a rectified
+   step;
+8. profiles, last, since the profiler leaves later launches slower on the
+   host: the GroupNorm kernels' device time per forward, and torch.profiler
+   kernel breakdowns of one U-Net forward with ``fused_norm`` True per
+   dtype and of one float32 NCSN++ forward.
 
 JSON lines precede the last line, which is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -61,6 +67,9 @@ BENCH_BATCH = 64 * 5    # the bench protocol: 64 images x 5 MC samples
 NCSNPP_REL_TOL = 1e-4   # NCSN++ card vs CPU, relative to max|out|, fp32
 KERNELS = ("conv3x3_gn", "groupnorm_swish", "groupnorm_swish_bm",
            "upfirdn2d")
+TWO_PHASE_BATCH = 4     # images at the 128x128 U-Net's GroupNorm sites
+TWO_PHASE_SITES = [(128, c, True) for c in (32, 64, 96)]
+FORWARD_REPS = 5        # model forwards are the median of this many
 
 
 def fail(msg):
@@ -123,11 +132,10 @@ def setup(torch):
     flags = set_fp32_parity_mode()
     mods = {m: importlib.util.find_spec(m) is not None
             for m in ("yaml", "matplotlib", "PIL", "pandas", "msgpack",
-                      "triton", "cv2")}
+                      "cv2")}
     emit({"setup": {"card": card, "torch": torch.__version__,
                     "cuda": torch.version.cuda, "python": sys.version.split()[0],
                     "tf32": flags, "importable": mods}})
-    check(mods["triton"], "triton is not importable")
     return card
 
 
@@ -257,27 +265,33 @@ def kernel_parity(torch, dev, gn_sites, conv_sites, firs):
     from pnpflow_tpu_torch.ops.fused_conv_gn import (
         conv3x3_gn, conv3x3_gn_reference)
     from pnpflow_tpu_torch.ops.gn_swish import (
-        gn_swish_reference, groupnorm_swish_fwd)
+        gn_plan, gn_swish_reference, groupnorm_swish_fwd)
     from pnpflow_tpu_torch.ops.gn_swish_bm import groupnorm_swish_bm_fwd
     from pnpflow_tpu_torch.ops.upfirdn import upfirdn2d, upfirdn2d_reference
 
     n = MAIN_BATCH
     err = {k: 0.0 for k in KERNELS}
-    for name, fn, ref in (
-            ("groupnorm_swish", groupnorm_swish_fwd, gn_swish_reference),
-            ("groupnorm_swish_bm", groupnorm_swish_bm_fwd,
-             gn_swish_reference)):
+    gn_cases = [(n, site) for site in sorted(set(gn_sites))] + [
+        (TWO_PHASE_BATCH, site) for site in TWO_PHASE_SITES]
+    paths = Counter()
+    for name, fn in (("groupnorm_swish", groupnorm_swish_fwd),
+                     ("groupnorm_swish_bm", groupnorm_swish_bm_fwd)):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
-            for i, (h, c, swish) in enumerate(sorted(set(gn_sites))):
-                x, s, b = gn_inputs(torch, dev, n, h, c, dtype, i)
+            for i, (bn, (h, c, swish)) in enumerate(gn_cases):
+                x, s, b = gn_inputs(torch, dev, bn, h, c, dtype, i)
                 got = fn(x, s, b, 32, 1e-6, swish)
                 torch.cuda.synchronize()
-                want = ref(x, s, b, 32, 1e-6, swish)
+                want = gn_swish_reference(x, s, b, 32, 1e-6, swish)
                 d = float((got.float() - want.float()).abs().max())
-                check(got.dtype == dtype and d <= tol,
-                      f"{name} {dtype} at {(h, c, swish)}: err {d}")
+                where = f"{name} {dtype} at {(bn, h, c, swish)}"
+                check(got.dtype == dtype and d <= tol, f"{where}: err {d}")
+                check(torch.equal(got, fn(x, s, b, 32, 1e-6, swish)),
+                      f"{where}: not bit-for-bit")
+                paths[gn_plan(bn, h * h, c, 32, x.element_size()).path] += 1
                 if dtype == torch.float32:
                     err[name] = max(err[name], d)
+    check(set(paths) == {"cluster", "two_phase"},
+          f"GroupNorm parity did not reach both paths: {dict(paths)}")
 
     combos = [(32, 64, 64, p, s, r) for p in (False, True)
               for s in (False, True) for r in (False, True)]
@@ -324,7 +338,8 @@ def kernel_parity(torch, dev, gn_sites, conv_sites, firs):
                   and d <= tol, f"upfirdn2d {dtype} at {site[:7]}: err {d}")
             if dtype == torch.float32:
                 err["upfirdn2d"] = max(err["upfirdn2d"], d)
-    emit({"kernel_parity": {"gn_sites": len(set(gn_sites)),
+    emit({"kernel_parity": {"gn_sites": len(gn_cases),
+                            "gn_paths": dict(paths),
                             "conv_sites": len(sites),
                             "fir_sites": len(set(firs)), "batch": n,
                             "max_abs_err_fp32": err}})
@@ -516,6 +531,23 @@ def main_path(torch, rect_ckpt):
 
 
 # --------------------------------------------------------------- 7. timing
+def cuda_median_ms(torch, fn, reps=FORWARD_REPS, warmup=1):
+    """The median of ``reps`` CUDA-event times of single calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
 def cuda_ms(torch, fn, reps=5, warmup=1):
     for _ in range(warmup):
         fn()
@@ -530,14 +562,14 @@ def cuda_ms(torch, fn, reps=5, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def time_gn(torch, dev, gn_sites, dtype, bm=False):
+def time_gn(torch, dev, gn_sites, dtype, n=BENCH_BATCH, bm=False):
     import torch.nn.functional as F
     from pnpflow_tpu_torch.ops.gn_swish import (
         gn_swish_reference, groupnorm_swish_fwd)
     from pnpflow_tpu_torch.ops.gn_swish_bm import groupnorm_swish_bm_fwd
 
     fwd = groupnorm_swish_bm_fwd if bm else groupnorm_swish_fwd
-    n, item = BENCH_BATCH, torch.finfo(dtype).bits // 8
+    item = torch.finfo(dtype).bits // 8
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
            "ops_ms": 0.0}
     for (h, c, swish), k in Counter(gn_sites).items():
@@ -558,8 +590,34 @@ def time_gn(torch, dev, gn_sites, dtype, bm=False):
     return tot
 
 
-def time_gn_bm(torch, dev, gn_sites, dtype):
-    return time_gn(torch, dev, gn_sites, dtype, bm=True)
+GN_KERNEL_NAMES = ("gn_cluster_kernel", "gn_moments_kernel",
+                   "gn_normalize_kernel")
+
+
+def device_ms(torch, fn, names, reps=5):
+    """Device time of one call of ``fn``: the time torch.profiler records
+    for the kernels whose names contain one of ``names``, over ``reps``
+    calls.  Unlike CUDA events around back-to-back calls, it leaves out the
+    device's idle time while the host prepares the next launch, which
+    small sites can spend more time in than in their kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA
+             and any(name in ev.key for name in names))
+    check(us > 0, f"torch.profiler recorded no kernel named {names}")
+    return us / 1e3 / reps
+
+
+def time_gn_bm(torch, dev, gn_sites, dtype, n=BENCH_BATCH):
+    return time_gn(torch, dev, gn_sites, dtype, n=n, bm=True)
 
 
 def time_conv(torch, dev, conv_sites, dtype, n=BENCH_BATCH):
@@ -657,11 +715,11 @@ def kernel_rows(torch, dev, sites, launches, err):
         ("conv3x3_gn", time_conv, "conv", "cuda",
          "pnpflow_tpu_torch/ops/csrc/conv3x3_gn.cu",
          "pnpflow_tpu/ops/fused_conv_gn.py:87", BENCH_BATCH),
-        ("groupnorm_swish", time_gn, "gn", "triton",
-         "pnpflow_tpu_torch/ops/gn_swish.py",
+        ("groupnorm_swish", time_gn, "gn", "cuda",
+         "pnpflow_tpu_torch/ops/csrc/gn_swish.cu",
          "pnpflow_tpu/ops/pallas_kernels.py:140", BENCH_BATCH),
-        ("groupnorm_swish_bm", time_gn_bm, "gn", "triton",
-         "pnpflow_tpu_torch/ops/gn_swish_bm.py",
+        ("groupnorm_swish_bm", time_gn_bm, "gn", "cuda",
+         "pnpflow_tpu_torch/ops/csrc/gn_swish.cu",
          "pnpflow_tpu/ops/pallas_kernels.py:314", BENCH_BATCH),
         ("upfirdn2d", time_fir, "fir", "cuda",
          "pnpflow_tpu_torch/ops/csrc/upfirdn2d.cu",
@@ -685,12 +743,12 @@ def kernel_rows(torch, dev, sites, launches, err):
         emit({"kernel_timing": name, "per_forward": True,
               "launches_per_forward": len(sites[key]), "batch": batch,
               **{dt: {k: v for k, v in d.items()} for dt, d in per.items()}})
-        if name == "conv3x3_gn":
-            with phase("timing/conv3x3_gn_main_batch"):
+        if key in ("conv", "gn"):
+            with phase(f"timing/{name}_main_batch"):
                 main = {}
                 for dtype in (torch.float32, torch.bfloat16):
                     with torch.inference_mode():
-                        main[str(dtype)[6:]] = time_conv(
+                        main[str(dtype)[6:]] = fn(
                             torch, dev, sites[key], dtype, n=MAIN_BATCH)
             emit({"kernel_timing": name, "per_forward": True,
                   "launches_per_forward": len(sites[key]),
@@ -709,10 +767,11 @@ def time_unet(torch, dev):
         for dtype in (torch.float32, torch.bfloat16):
             m = randomized_unet(torch, dev, fused, dtype=dtype)
             with torch.inference_mode():
-                fwd[f"{fused}/{str(dtype)[6:]}"] = cuda_ms(
-                    torch, lambda: m(x, t), reps=2)
+                fwd[f"{fused}/{str(dtype)[6:]}"] = cuda_median_ms(
+                    torch, lambda: m(x, t))
             del m
-    emit({"unet_forward_ms": fwd, "batch": BENCH_BATCH})
+    emit({"unet_forward_ms": fwd, "batch": BENCH_BATCH,
+          "median_of": FORWARD_REPS})
 
     model = randomized_unet(torch, dev, "conv")
     op = GaussianDeblurring(3.0, 61, 3, 64, device=dev)
@@ -747,6 +806,8 @@ def pnp_step_seconds(torch, dev, model, op, y, steps=3):
 
 PROFILE_GROUPS = (    # kernel-name keyword -> group, first match wins
     ("upfirdn2d", "upfirdn2d"), ("group_norm", "group_norm"),
+    ("gn_cluster_kernel", "gn_swish"), ("gn_moments_kernel", "gn_swish"),
+    ("gn_normalize_kernel", "gn_swish"),
     ("GroupNorm", "group_norm"), ("conv", "conv"), ("cudnn", "conv"),
     ("xmma", "conv"), ("fft", "conv"), ("winograd", "conv"),
     ("gemm", "matmul"), ("cutlass", "matmul"), ("softmax", "softmax"),
@@ -758,8 +819,8 @@ CUPTI_RECORDS = ("Buffer Flush", "Activity Buffer Request",
                  "Command Buffer Full")
 
 
-def profile_ncsnpp(torch, dev, m, x, t):
-    """Device time of one float32 NCSN++ forward by kernel, from
+def profile_forward(torch, dev, key, m, x, t):
+    """Device time of one model forward by kernel, from
     torch.profiler's CUDA activity (kernel events only: an op's own device
     time repeats its kernels', and CUPTI's buffer records are not kernels):
     the top kernels, their groups, the kernel count, the device's busy
@@ -792,8 +853,8 @@ def profile_ncsnpp(torch, dev, m, x, t):
         groups[next((g for k, g in PROFILE_GROUPS if k in name),
                     "other")] += ms
     device_ms = sum(r[1] for r in rows)
-    emit({"ncsnpp_profile": {
-        "dtype": "float32", "batch": x.shape[0], "wall_ms": wall_ms,
+    emit({key: {
+        "dtype": str(m.dtype)[6:], "batch": x.shape[0], "wall_ms": wall_ms,
         "device_ms": device_ms, "kernels": sum(r[2] for r in rows),
         "device_busy_share": device_ms / wall_ms if wall_ms else None,
         "max_memory_allocated": peak, "groups_ms": dict(groups),
@@ -817,7 +878,6 @@ def time_rectified(torch, dev, rect_state):
         del m
     emit({"ncsnpp_forward_ms": fwd, "batch": MAIN_BATCH,
           "image": RECT_DIM})
-    profile_ncsnpp(torch, dev, ncsnpp(torch, dev, rect_state), x, t)
 
     model = RectifiedAdapter(ncsnpp(torch, dev, rect_state)).eval()
     op = GaussianDeblurring(3.0, 61, 3, RECT_DIM, device=dev)
@@ -833,6 +893,46 @@ def time_rectified(torch, dev, rect_state):
                            (MAIN_BATCH // 5) / (100 * step_s),
                        "max_memory_allocated":
                            torch.cuda.max_memory_allocated(dev)}})
+
+
+# ------------------------------------------------------------- 8. profiles
+def profiles(torch, dev, gn_sites, rect_state):
+    """torch.profiler readings, taken last: once the profiler has run,
+    later launches can cost the host more, so no timing above follows it.
+    The GroupNorm kernels' device time per U-Net forward for both entries
+    at both batches, and kernel breakdowns of one U-Net forward with
+    ``fused_norm`` True per dtype and of one float32 NCSN++ 256^2 forward."""
+    from pnpflow_tpu_torch.ops.gn_swish import groupnorm_swish_fwd
+    from pnpflow_tpu_torch.ops.gn_swish_bm import groupnorm_swish_bm_fwd
+
+    out = {}
+    for name, fwd in (("groupnorm_swish", groupnorm_swish_fwd),
+                      ("groupnorm_swish_bm", groupnorm_swish_bm_fwd)):
+        for n in (BENCH_BATCH, MAIN_BATCH):
+            for dtype in (torch.float32, torch.bfloat16):
+                ms = 0.0
+                with torch.inference_mode():
+                    for (h, c, swish), k in Counter(gn_sites).items():
+                        x, s, b = gn_inputs(torch, dev, n, h, c, dtype, 0)
+                        ms += k * device_ms(
+                            torch, lambda: fwd(x, s, b, 32, 1e-6, swish),
+                            GN_KERNEL_NAMES)
+                out[f"{name}/{n}/{str(dtype)[6:]}"] = ms
+    emit({"gn_device_ms_per_forward": out})
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(BENCH_BATCH, 64, 64, 3, generator=g, device=dev)
+    t = torch.rand(BENCH_BATCH, generator=g, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        profile_forward(torch, dev, "unet_profile",
+                        randomized_unet(torch, dev, True, dtype=dtype), x, t)
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(MAIN_BATCH, RECT_DIM, RECT_DIM, 3, generator=g,
+                    device=dev)
+    t = torch.rand(MAIN_BATCH, generator=g, device=dev) * 999.0 + 1.0
+    profile_forward(torch, dev, "ncsnpp_profile",
+                    ncsnpp(torch, dev, rect_state), x, t)
 
 
 def main():
@@ -874,6 +974,8 @@ def main():
         time_unet(torch, dev)
     with phase("timing/rectified"):
         time_rectified(torch, dev, rect_state)
+    with phase("profiles"):
+        profiles(torch, dev, gn_sites, rect_state)
     emit({"kernels": kernels})
     emit({"seconds": time.perf_counter() - t_all})
     print(card, flush=True)

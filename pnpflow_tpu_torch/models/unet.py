@@ -18,8 +18,8 @@ channels_last view.  ``fused_norm`` selects the GroupNorm path:
 
 * ``False``: plain PyTorch GroupNorm + swish, plain convolutions;
 * ``True``: every GroupNorm through the ``groupnorm_swish`` kernel;
-* ``"bm"``: every GroupNorm through the two-phase ``groupnorm_swish_bm``
-  kernel;
+* ``"bm"``: every GroupNorm through ``groupnorm_swish_bm``, the same
+  kernel as ``True`` under the JAX package's batch-minor entry;
 * ``"conv"``: every ResidualBlock conv (and the begin conv) through the
   fused ``conv3x3_gn`` kernel, whose prologue applies the preceding
   GroupNorm + swish from the moments the previous kernel emitted.

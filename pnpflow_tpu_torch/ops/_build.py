@@ -34,6 +34,10 @@ SOURCES = {
         "upfirdn2d_launch",
         [_I, _P, _P, ctypes.POINTER(ctypes.c_float)] + [_I] * 10 + [_P],
     ),
+    "gn_swish": (
+        "gn_swish_launch",
+        [_I] + [_P] * 5 + [_I] * 4 + [ctypes.c_float] + [_I] * 6 + [_P],
+    ),
 }
 
 NVCC_FLAGS = [

@@ -1,25 +1,38 @@
-"""Fused GroupNorm(32, eps 1e-6) [+ swish] on NHWC, as a Triton kernel.
+"""Fused GroupNorm(32, eps 1e-6) [+ swish] on NHWC, as a CUDA kernel.
 
 Replaces the TPU kernel ``pnpflow_tpu/ops/pallas_kernels.py:_gn_swish_kernel``
-(launched by ``_gn_swish_fwd_pallas``, entry ``groupnorm_swish``).
+(launched by ``_gn_swish_fwd_pallas``, entry ``groupnorm_swish``).  The same
+kernel, ``csrc/gn_swish.cu``, serves ``groupnorm_swish_bm``
+(``ops/gn_swish_bm.py``), since the two entries compute one function.
 
 What it computes: per sample and per group, one-pass float32 statistics
-E[x], E[x^2] - E[x]^2 (clamped at 0, as flax's GroupNorm does) over the
-group's (H, W, C/G) slab; then (x - mean) * rsqrt(var + eps) * scale + bias,
-an optional swish, and a store in x's dtype.
+E[x] and max(E[x^2] - E[x]^2, 0) over the group's (H, W, C/G) slab; then
+(x - mean) * rsqrt(var + eps) * scale + bias, an optional swish, and a store
+in x's dtype.  The clamp at 0 is an intended divergence: JAX's
+``groupnorm_swish`` and ``groupnorm_swish_bm`` do not clamp, neither in
+their plain path (``pnpflow_tpu/ops/pallas_kernels.py:_gn_stats``, :215) nor
+in the kernel (:148), and give NaN where float32 rounding makes the variance
+negative (a group of near-constant large values); JAX's conv prologue
+(``pnpflow_tpu/ops/fused_conv_gn.py:gn_prologue``, :323) and flax's
+``nn.GroupNorm`` clamp, and the port follows them.
 
 What bounds it on an H100: bytes.  It does a handful of operations per
 element, far below the ~295 operations per byte the card needs before
 compute is the limit, so the least time is 2 * N*H*W*C * itemsize (read
 once, write once) over 3.35 TB/s.
 
-What the design does about it: one program per (sample, group) loops over
-the slab twice, once for the two sums and once to normalize and store, so
-the tensor crosses device memory as one write and at most two reads (a
-slab is at most 64*64*16*4 bytes = 256 KB, so L2 can serve the second).
-Group sizes that are not a power of two (3, 6, 12 in the U-Net) are masked.
-Channels are strided by C in NHWC, so the loads are as wide as one group's
-channels; wider, coalesced tiles are later work.
+What the design does about it (``csrc/gn_swish.cu``): the TPU kernel reads
+whole images into VMEM once; here a thread-block cluster of K blocks holds a
+sample in its distributed shared memory.  Each block stages a contiguous
+range of whole pixel rows with bulk async copies, sums x and x^2 per channel,
+and the blocks exchange their group partials through distributed shared
+memory in rank order, so each element crosses device memory once each way
+and results repeat bit for bit.  :func:`gn_plan` picks K per shape: the
+smallest cluster whose blocks fit two to an SM, raised until the grid fills
+the card's 132 SMs.  Samples no cluster holds, and rows that are not whole
+16-byte vectors, take a two-launch path (per-tile channel moments, then
+pooled statistics and the normalize).  No fallback: a launch that fails, or
+a cluster the card cannot hold, raises.
 
 Beside the kernel: :func:`gn_swish_reference`, the plain PyTorch version
 (used for CPU tensors and as the kernel's yardstick), and
@@ -30,11 +43,27 @@ copy of ``_gn_swish_vjp_bwd``.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
+from pnpflow_tpu_torch.ops import _build
+
 __all__ = ["groupnorm_swish", "groupnorm_swish_fwd", "gn_swish_reference",
-           "gn_swish_backward"]
+           "gn_swish_backward", "gn_plan", "GNPlan", "check_args", "launch"]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_PATH_CODE = {"cluster": 0, "two_phase": 1}
+_ERR_CLUSTER = -2
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+SMEM_PAIR = 112 * 1024      # a block's shared memory when two share an SM
+SMEM_MAX = 227 * 1024       # a block's opt-in maximum (232,448 bytes)
+CLUSTER_MAX = 16            # blocks of a cluster (non-portable above 8)
+FILL_MAX = 8                # the cluster is raised to fill the card up to 8
+TILES_MAX = 64              # row tiles of a sample on the two-phase path
+THREADS = 256               # threads a block aims at
+MAX_THREADS = 1024
+HEAD = 32                   # bytes of mbarriers before a block's partials
 
 
 def _gn_stats(x, num_groups, eps):
@@ -60,98 +89,169 @@ def gn_swish_reference(x, scale, bias, num_groups: int = 32,
     return y.to(x.dtype)
 
 
+class GNPlan(NamedTuple):
+    """How ``csrc/gn_swish.cu`` runs one shape.  ``path`` "cluster": each
+    sample is one cluster of ``k`` blocks; "two_phase": ``k`` row tiles a
+    sample in each of two launches.  Block ``i`` of a sample owns pixel rows
+    ``rows[i]`` (first, end); ``v`` channels make a vector (1 where a pixel
+    row is not whole 16-byte vectors); ``threads`` and ``smem`` (bytes of
+    dynamic shared memory) are per block."""
+    path: str
+    k: int
+    v: int
+    threads: int
+    smem: int
+    rows: tuple
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _threads(cv: int, rows: int) -> int:
+    """Threads of a block whose rows are ``cv`` vectors wide: whole rows of
+    vectors, about :data:`THREADS`, no more row groups than rows."""
+    if cv > MAX_THREADS:
+        raise ValueError(f"a pixel row of {cv} vectors is wider than a "
+                         f"block of {MAX_THREADS} threads")
+    return cv * max(1, min(THREADS // cv, rows))
+
+
+def _red_rows(threads: int, cv: int) -> int:
+    """Rows of a block's partial-sum buffer (the kernel's ``red_rows``)."""
+    if 32 % cv == 0 and threads % 32 == 0:
+        return threads // 32
+    return threads // cv
+
+
+def _split(hw: int, k: int) -> tuple:
+    return tuple((hw * i // k, hw * (i + 1) // k) for i in range(k))
+
+
 @functools.lru_cache(maxsize=None)
-def _triton_kernel():
-    import triton
-    import triton.language as tl
+def gn_plan(n: int, hw: int, c: int, num_groups: int, itemsize: int) -> GNPlan:
+    """The launch plan for n samples of hw pixels x c channels.
 
-    @triton.jit
-    def gn_swish_kernel(x_ptr, scale_ptr, bias_ptr, y_ptr, HW, C, CG, G,
-                        eps, inv_n, SWISH: tl.constexpr,
-                        BLOCK_HW: tl.constexpr, BLOCK_CG: tl.constexpr):
-        pid = tl.program_id(0)
-        n = pid // G
-        g = pid % G
-        base = n.to(tl.int64) * HW * C + g * CG
-        rows0 = tl.arange(0, BLOCK_HW)
-        cols = tl.arange(0, BLOCK_CG)
-        cmask = cols < CG
+    Path "cluster" wherever a pixel row is whole 16-byte vectors and a
+    sample fits in 16 blocks of at most 227 KB: the smallest K (a power of
+    two, at most the sample's rows) whose blocks fit two to an SM
+    (:data:`SMEM_PAIR`), else one to an SM, then K doubled, up to
+    :data:`FILL_MAX` and the rows, until n*K >= :data:`SMS`.  Otherwise
+    "two_phase", with the fewest row tiles (a power of two, at most
+    :data:`TILES_MAX` and the rows) that give 2 * :data:`SMS` blocks.
+    """
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} "
+                         f"groups")
+    v = 16 // itemsize if (c * itemsize) % 16 == 0 else 1
+    cv = c // v
+    if v > 1:
+        def cluster(k):
+            rows = _cdiv(hw, k)
+            t = _threads(cv, rows)
+            off = _cdiv(HEAD + 16 * num_groups + 8 * _red_rows(t, cv) * c,
+                        128) * 128
+            return GNPlan("cluster", k, v, t, off + rows * c * itemsize,
+                          _split(hw, k))
 
-        s1 = tl.zeros([BLOCK_HW, BLOCK_CG], tl.float32)
-        s2 = tl.zeros([BLOCK_HW, BLOCK_CG], tl.float32)
-        for start in range(0, HW, BLOCK_HW):
-            rows = start + rows0
-            mask = (rows < HW)[:, None] & cmask[None, :]
-            offs = base + rows[:, None].to(tl.int64) * C + cols[None, :]
-            v = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            s1 += v
-            s2 += v * v
-        mean = tl.sum(tl.sum(s1, axis=1), axis=0) * inv_n
-        meansq = tl.sum(tl.sum(s2, axis=1), axis=0) * inv_n
-        var = tl.maximum(meansq - mean * mean, 0.0)
-        rstd = 1.0 / tl.sqrt(var + eps)
-
-        ch = g * CG + cols
-        sc = tl.load(scale_ptr + ch, mask=cmask, other=0.0).to(tl.float32)
-        bi = tl.load(bias_ptr + ch, mask=cmask, other=0.0).to(tl.float32)
-        for start in range(0, HW, BLOCK_HW):
-            rows = start + rows0
-            mask = (rows < HW)[:, None] & cmask[None, :]
-            offs = base + rows[:, None].to(tl.int64) * C + cols[None, :]
-            v = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            y = (v - mean) * rstd
-            y = y * sc[None, :] + bi[None, :]
-            if SWISH:
-                y = y * tl.sigmoid(y)
-            tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    return gn_swish_kernel
+        ks = [k for k in (1, 2, 4, 8, CLUSTER_MAX) if k <= hw]
+        k = next((k for k in ks if cluster(k).smem <= SMEM_PAIR),
+                 next((k for k in ks if cluster(k).smem <= SMEM_MAX), None))
+        if k is not None:
+            while n * k < SMS and k < FILL_MAX and 2 * k <= hw:
+                k *= 2
+            return cluster(k)
+    k = 1
+    while n * k < 2 * SMS and k < TILES_MAX and 2 * k <= hw:
+        k *= 2
+    t = _threads(cv, _cdiv(hw, k))
+    smem = max(8 * _red_rows(t, cv) * c, 8 * c + 16 * num_groups)
+    return GNPlan("two_phase", k, v, t, smem, _split(hw, k))
 
 
-def _check(x, scale, bias, num_groups):
+def check_args(x, scale, bias, num_groups):
+    """Check the arguments as the kernel takes them, on every device, and
+    return the shape's :func:`gn_plan`."""
     if x.dim() != 4:
         raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
-    c = x.shape[-1]
+    n, h, w, c = x.shape
     if c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
-    if scale.shape != (c,) or bias.shape != (c,):
-        raise ValueError("scale and bias must have shape (C,)")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be NHWC-contiguous")
+    dev = x.device
+    for name, p in (("scale", scale), ("bias", bias)):
+        if p.shape != (c,):
+            raise ValueError(f"{name} must have shape ({c},), got "
+                             f"{tuple(p.shape)}")
+        if (p.dtype != torch.float32 or p.device != dev
+                or not p.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 tensor "
+                             f"on {dev}")
+    return gn_plan(n, h * w, c, num_groups, x.element_size())
+
+
+def launch(x, scale, bias, num_groups, eps, swish, plan):
+    """Run ``csrc/gn_swish.cu`` on CUDA tensors checked by
+    :func:`check_args`; returns y.  Raises where the card cannot run the
+    plan; never computes the result another way."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if plan.v > 1 and x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary for the "
+                         "kernel's vector loads")
+    n, h, w, c = x.shape
+    fn = _build.load("gn_swish")
+    y = torch.empty_like(x)
+    ws = None
+    if plan.path == "two_phase":
+        ws = torch.empty((n, plan.k, 2, c), dtype=torch.float32,
+                         device=x.device)
+    args = (_DTYPE_CODE[x.dtype], x.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), n, h * w, c, num_groups,
+            float(eps), int(bool(swish)), _PATH_CODE[plan.path], plan.k,
+            plan.v, plan.threads, plan.smem)
+    # The launch goes to the current device and stream.  The raw stream
+    # handle, and no device switch where none is needed, keep the host's
+    # cost per call below a small site's kernel time, which
+    # torch.cuda.current_stream() and torch.cuda.device() each approach.
+    idx = x.device.index
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(x.device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if err == _ERR_CLUSTER:
+        raise RuntimeError(f"the card cannot hold one cluster of {plan.k} "
+                           f"blocks of {plan.smem} bytes: {plan}")
+    if err != 0:
+        raise RuntimeError(f"gn_swish launch failed (error {err}) for "
+                           f"{tuple(x.shape)} {x.dtype}: {plan}")
+    return y
 
 
 def groupnorm_swish_fwd(x, scale, bias, num_groups: int = 32,
                         eps: float = 1e-6, swish: bool = True):
-    """Forward only.  CPU tensors take :func:`gn_swish_reference`; CUDA
-    tensors launch the Triton kernel (counted in ``.launches``) or raise."""
-    _check(x, scale, bias, num_groups)
+    """Forward only.  The arguments are checked as the kernel takes them on
+    every device; then CPU tensors take :func:`gn_swish_reference` and CUDA
+    tensors launch ``csrc/gn_swish.cu`` (counted in ``.launches``) or
+    raise."""
+    plan = check_args(x, scale, bias, num_groups)
     if x.device.type == "cpu":
         return gn_swish_reference(x, scale, bias, num_groups, eps, swish)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"unsupported dtype {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("x must be NHWC-contiguous")
-    for name, p in (("scale", scale), ("bias", bias)):
-        if (p.device != x.device or p.dtype != torch.float32
-                or not p.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous float32 tensor "
-                             f"on {x.device}")
-    n, h, w, c = x.shape
-    cg = c // num_groups
-    hw = h * w
-    block_cg = 1 << (cg - 1).bit_length()
-    block_hw = min(max(2048 // block_cg, 16), 1 << (hw - 1).bit_length())
-    y = torch.empty_like(x)
-    _triton_kernel()[(n * num_groups,)](
-        x, scale, bias, y, hw, c, cg, num_groups, float(eps),
-        1.0 / (hw * cg), SWISH=bool(swish), BLOCK_HW=block_hw,
-        BLOCK_CG=block_cg, num_warps=4,
-    )
+    y = launch(x, scale, bias, num_groups, eps, swish, plan)
     groupnorm_swish_fwd.launches += 1
     return y
 
 
 groupnorm_swish_fwd.launches = 0
+
+
+def needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def gn_swish_backward(x, scale, bias, num_groups, eps, swish, dy):
@@ -194,5 +294,9 @@ class _GroupNormSwish(torch.autograd.Function):
 
 def groupnorm_swish(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,
                     swish: bool = True):
-    """GroupNorm(num_groups, eps) [+ swish] on NHWC, differentiable."""
-    return _GroupNormSwish.apply(x, scale, bias, num_groups, eps, swish)
+    """GroupNorm(num_groups, eps) [+ swish] on NHWC, differentiable.
+    Without a gradient to record it calls the forward directly, sparing the
+    host the autograd function's cost, which a small site would feel."""
+    if needs_grad(x, scale, bias):
+        return _GroupNormSwish.apply(x, scale, bias, num_groups, eps, swish)
+    return groupnorm_swish_fwd(x, scale, bias, num_groups, eps, swish)

@@ -17,8 +17,7 @@ from pnpflow_tpu.ops.pallas_kernels import (
     _gn_swish_bm_pallas, groupnorm_swish_bm as jax_gn_bm)
 from pnpflow_tpu_torch.ops.gn_swish import gn_swish_reference
 from pnpflow_tpu_torch.ops.gn_swish_bm import (
-    MAX_TILES, TILE_ELEMS, groupnorm_swish_bm, groupnorm_swish_bm_fwd,
-    tiling)
+    groupnorm_swish_bm, groupnorm_swish_bm_fwd)
 
 
 def _jax_bm(x, scale, bias, groups, swish):
@@ -83,15 +82,3 @@ def test_backward_matches_jax_vjp():
     for got, w in zip((tx.grad, ts.grad, tb.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=2e-4,
                                    atol=2e-4)
-
-
-@pytest.mark.parametrize("hw,c", [(64 * 64, 32), (64 * 64, 96), (8 * 8, 512),
-                                  (16 * 16, 384), (49, 32), (1, 64)])
-def test_tiling_covers_every_row_once(hw, c):
-    til = tiling(hw, c, 32)
-    assert 1 <= til["tiles"] <= MAX_TILES
-    assert til["rows"] % til["BLOCK_HW"] == 0
-    assert (til["tiles"] - 1) * til["rows"] < hw <= til["tiles"] * til["rows"]
-    assert til["BLOCK_G"] * til["BLOCK_CG"] >= c
-    assert til["BLOCK_HW"] * til["BLOCK_G"] * til["BLOCK_CG"] <= TILE_ELEMS \
-        or til["BLOCK_HW"] == 1

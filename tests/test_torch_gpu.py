@@ -12,7 +12,8 @@ import torch
 from pnpflow_tpu_torch.ops.fused_conv_gn import (
     channel_moments, conv3x3_gn, conv3x3_gn_reference, gn_prologue)
 from pnpflow_tpu_torch.ops.gn_swish import (
-    gn_swish_reference, groupnorm_swish, groupnorm_swish_fwd)
+    gn_plan, gn_swish_reference, groupnorm_swish, groupnorm_swish_fwd)
+from pnpflow_tpu_torch.ops.gn_swish import launch as gn_launch
 from pnpflow_tpu_torch.ops.gn_swish_bm import (
     groupnorm_swish_bm, groupnorm_swish_bm_fwd)
 from pnpflow_tpu_torch.ops.upfirdn import (
@@ -32,29 +33,101 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("hw,c,swish", [(64, 96, True), (32, 192, True),
-                                        (16, 128, False), (8, 512, True)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_groupnorm_swish_kernel(cuda, hw, c, swish, dtype):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(3, hw, hw, c, generator=g, device=cuda).to(dtype)
+# (n, h, w, c, groups, swish, path): flagship sites with group sizes 3, 6,
+# 12 and 16 and clusters of 16 and 8 blocks; ragged shapes whose rows split
+# unevenly over the cluster (49 over 8, 485 over 8) and one-pixel images;
+# the 128^2 U-Net, where fp32 96 and 64 channels fit no cluster; and rows
+# that are not whole 16-byte vectors, which take the scalar two-phase path
+# (None: the path differs between the dtypes)
+GN_CASES = [
+    (3, 64, 64, 96, 32, True, "cluster"), (20, 32, 32, 192, 32, True,
+                                          "cluster"),
+    (20, 16, 16, 384, 32, False, "cluster"), (20, 8, 8, 512, 32, True,
+                                              "cluster"),
+    (20, 64, 64, 32, 32, True, "cluster"), (5, 7, 7, 32, 32, True, "cluster"),
+    (4, 5, 97, 64, 32, False, "cluster"), (3, 1, 1, 64, 32, True, "cluster"),
+    (2, 128, 128, 96, 32, True, None), (2, 128, 128, 64, 32, False, None),
+    (3, 9, 9, 36, 4, True, None), (2, 5, 7, 6, 2, True, "two_phase"),
+]
+
+
+def _check_gn_kernel(cuda, fn, case, dtype):
+    n, h, w, c, groups, swish, path = case
+    g = torch.Generator(device=cuda).manual_seed(c + h)
+    x = (torch.randn(n, h, w, c, generator=g, device=cuda) * 2 + 0.5).to(
+        dtype)
     s = torch.randn(c, generator=g, device=cuda) * 0.2 + 1
     b = torch.randn(c, generator=g, device=cuda) * 0.1
-    before = groupnorm_swish_fwd.launches
-    y = groupnorm_swish_fwd(x, s, b, 32, 1e-6, swish)
+    plan = gn_plan(n, h * w, c, groups, x.element_size())
+    assert path is None or plan.path == path
+    before = fn.launches
+    y = fn(x, s, b, groups, 1e-6, swish)
     torch.cuda.synchronize()
-    assert groupnorm_swish_fwd.launches == before + 1
-    want = gn_swish_reference(x, s, b, 32, 1e-6, swish)
+    assert fn.launches == before + 1     # one per call, on either path
+    want = gn_swish_reference(x, s, b, groups, 1e-6, swish)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert y.dtype == dtype
     assert float((y.float() - want.float()).abs().max()) <= tol
+    # partials are reduced in a fixed order, without atomics
+    assert torch.equal(y, fn(x, s, b, groups, 1e-6, swish))
+
+
+@pytest.mark.parametrize("case", GN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_swish_kernel(cuda, case, dtype):
+    _check_gn_kernel(cuda, groupnorm_swish_fwd, case, dtype)
+
+
+@pytest.mark.parametrize("case", GN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_swish_bm_kernel(cuda, case, dtype):
+    _check_gn_kernel(cuda, groupnorm_swish_bm_fwd, case, dtype)
+
+
+def _check_gn_backward(cuda, fn):
+    """Gradients through the kernel's forward on the card equal the CPU's
+    (the backward is plain torch on both)."""
+    x0 = torch.randn(2, 8, 8, 64) * 2 + 0.5
+    s0, b0 = torch.rand(64) + 0.5, torch.randn(64) * 0.1
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        x, s, b = (t.to(dev).requires_grad_() for t in (x0, s0, b0))
+        torch.sin(fn(x, s, b)).sum().backward()
+        grads.append([t.grad.cpu() for t in (x, s, b)])
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
 
 
 def test_groupnorm_swish_backward_on_card(cuda):
-    x = torch.randn(2, 8, 8, 64, device=cuda, requires_grad=True)
-    s = torch.ones(64, device=cuda, requires_grad=True)
-    b = torch.zeros(64, device=cuda, requires_grad=True)
-    groupnorm_swish(x, s, b).sum().backward()
-    assert torch.isfinite(x.grad).all()
+    _check_gn_backward(cuda, groupnorm_swish)
+
+
+def test_groupnorm_swish_bm_backward_on_card(cuda):
+    _check_gn_backward(cuda, groupnorm_swish_bm)
+
+
+@pytest.mark.parametrize("fn", [groupnorm_swish_fwd, groupnorm_swish_bm_fwd])
+def test_groupnorm_swish_refuses_what_it_cannot_take(cuda, fn):
+    s, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    x = torch.randn(2 * 8 * 8 * 64 + 1, device=cuda)[1:].view(2, 8, 8, 64)
+    before = fn.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(x, s, b)                                   # 4 bytes off
+    with pytest.raises(ValueError, match="wider than a block"):
+        fn(torch.zeros(1, 2, 2, 8192, device=cuda),
+           torch.ones(8192, device=cuda), torch.zeros(8192, device=cuda))
+    with pytest.raises(TypeError):
+        fn(x.half().contiguous(), s, b)
+    assert fn.launches == before
+    # a plan the kernel cannot run is refused by the launch, not run
+    # another way
+    x = x.clone()
+    plan = gn_plan(2, 64, 64, 32, 4)
+    for bad in (plan._replace(smem=256), plan._replace(k=32),
+                plan._replace(threads=24)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            gn_launch(x, s, b, 32, 1e-6, True, bad)
 
 
 # (batch, size, C, CO, flags): every epilogue combination at one shape,
@@ -137,36 +210,6 @@ def test_conv3x3_gn_rejects_what_it_cannot_take(cuda):
         conv3x3_gn(x, w.double(), b)                          # weight dtype
     with pytest.raises(TypeError):
         conv3x3_gn(x.half(), w.half(), b)                     # fp16
-
-
-@pytest.mark.parametrize("hw,c,swish", [(64, 96, True), (32, 192, True),
-                                        (16, 128, False), (8, 512, True),
-                                        (7, 32, True), (64, 3 * 32, False)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_groupnorm_swish_bm_kernel(cuda, hw, c, swish, dtype):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    x = (torch.randn(5, hw, hw, c, generator=g, device=cuda) * 2 + 0.5).to(
-        dtype)
-    s = torch.randn(c, generator=g, device=cuda) * 0.2 + 1
-    b = torch.randn(c, generator=g, device=cuda) * 0.1
-    before = groupnorm_swish_bm_fwd.launches
-    y = groupnorm_swish_bm_fwd(x, s, b, 32, 1e-6, swish)
-    torch.cuda.synchronize()
-    assert groupnorm_swish_bm_fwd.launches == before + 1
-    want = gn_swish_reference(x, s, b, 32, 1e-6, swish)
-    tol = 1e-4 if dtype == torch.float32 else 5e-2
-    assert y.dtype == dtype
-    assert float((y.float() - want.float()).abs().max()) <= tol
-    # the two-phase kernel reduces in a fixed order: it repeats exactly
-    assert torch.equal(y, groupnorm_swish_bm_fwd(x, s, b, 32, 1e-6, swish))
-
-
-def test_groupnorm_swish_bm_backward_on_card(cuda):
-    x = torch.randn(2, 8, 8, 64, device=cuda, requires_grad=True)
-    s = torch.ones(64, device=cuda, requires_grad=True)
-    b = torch.zeros(64, device=cuda, requires_grad=True)
-    groupnorm_swish_bm(x, s, b).sum().backward()
-    assert torch.isfinite(x.grad).all()
 
 
 @pytest.mark.parametrize("h,c,up,down,pad", [
