@@ -17,7 +17,8 @@ failure (nothing is caught and passed over) and prints its seconds:
    every epilogue combination of the conv kernel and, for both GroupNorm
    entries, the 128x128 U-Net's sites at 4 images (where float32 samples
    of 64 and 96 channels fit no cluster and take the two-phase path); the
-   conv and GroupNorm kernels must also repeat bit for bit;
+   conv, GroupNorm and FIR kernels must also repeat bit for bit, and each
+   FIR site must take the tiled path (the narrow one at C = 3);
 5. model parity: the random flagship U-Net with ``fused_norm`` True, "bm"
    and "conv" against False, and the random NCSN++ 256^2 on the card
    against the same weights on the CPU;
@@ -29,13 +30,14 @@ failure (nothing is caught and passed over) and prints its seconds:
 7. timing: CUDA-event times of each kernel, its plain version and the
    PyTorch library call, per forward at the bench shapes (U-Net: 64x64, 64
    images x 5 Monte-Carlo samples, and for conv3x3_gn and both GroupNorm
-   entries also the main-path 20; NCSN++: 256x256, 4 x 5), the forwards
-   per mode (median of 5), PnP steps and the peak memory of a rectified
-   step;
+   entries also the main-path 20; NCSN++: 256x256, 4 x 5, upfirdn2d also
+   by site), the forwards per mode (median of 5), PnP steps and the peak
+   memory of a rectified step;
 8. profiles, last, since the profiler leaves later launches slower on the
-   host: the GroupNorm kernels' device time per forward, and torch.profiler
-   kernel breakdowns of one U-Net forward with ``fused_norm`` True per
-   dtype and of one float32 NCSN++ forward.
+   host: the GroupNorm kernels' device time per forward, the upfirdn2d
+   kernels' per NCSN++ forward and by site, and torch.profiler kernel
+   breakdowns of one U-Net forward with ``fused_norm`` True per dtype and
+   of one float32 NCSN++ forward.
 
 JSON lines precede the last line, which is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -44,6 +46,7 @@ JSON lines precede the last line, which is
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib.util
 import json
 import os
@@ -61,6 +64,7 @@ FLAGSHIP = dict(input_channels=3, input_height=64, ch=32,
                 attn_resolutions=(16, 8))
 RECT_DIM = 256          # the NCSN++ 256^2 (CelebA-HQ / AFHQ-Cat) defaults
 RECT_FIR_SITES = 36     # upfirdn2d calls per NCSN++ 256^2 forward
+RECT_FIR_NARROW = 12    # of which C = 3 (the image pyramids)
 CLI_STEPS = 100         # main-path PnP steps: the CLI default
 MAIN_BATCH = 4 * 5      # batch_size_ip x num_samples: images per forward
 BENCH_BATCH = 64 * 5    # the bench protocol: 64 images x 5 MC samples
@@ -108,6 +112,12 @@ def launch_counters():
 def reset_counts():
     for fn in launch_counters().values():
         fn.launches = 0
+    fir = launch_counters()["upfirdn2d"]
+    fir.paths = dict.fromkeys(fir.paths, 0)
+
+
+def fir_paths():
+    return dict(launch_counters()["upfirdn2d"].paths)
 
 
 def read_counts():
@@ -116,6 +126,13 @@ def read_counts():
 
 def only(**counts):
     return {k: counts.get(k, 0) for k in KERNELS}
+
+
+def fir_forward_paths(forwards):
+    """upfirdn2d launches by path over ``forwards`` NCSN++ 256^2 forwards:
+    the tiled path, and the narrow one for the C = 3 image pyramids."""
+    return {"tiled": (RECT_FIR_SITES - RECT_FIR_NARROW) * forwards,
+            "narrow": RECT_FIR_NARROW * forwards, "general": 0}
 
 
 # ---------------------------------------------------------------- 1. setup
@@ -202,7 +219,7 @@ def fir_sites(torch, dev):
 
     # the wrapper counts through its module-level name, which is `record`
     # while it is patched in
-    record.launches = 0
+    record.launches, record.paths = 0, dict.fromkeys(upfirdn_mod.PATHS, 0)
     m = NCSNpp(image_size=RECT_DIM).to(dev).eval()
     upfirdn_mod.upfirdn2d = record
     try:
@@ -326,22 +343,34 @@ def kernel_parity(torch, dev, gn_sites, conv_sites, firs):
                     err["conv3x3_gn"] = max(err["conv3x3_gn"], d)
 
     # fp32: atol 1e-5 (16 fp32 products of O(1) values); bf16: one bf16
-    # rounding of outputs below 4, where an ulp is 2^-6
+    # rounding of outputs below 4, where an ulp is 2^-6.  Sums in a fixed
+    # order, no atomics: repeats are bit for bit.  Each NCSN++ site takes
+    # the tiled path, or the narrow one at C = 3.
+    fir_path_counts = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         for i, site in enumerate(sorted(set(firs))):
             x, k, kw = fir_inputs(torch, dev, n, site, dtype, 200 + i)
+            before = fir_paths()
             got = upfirdn2d(x, k, **kw)
             torch.cuda.synchronize()
+            path = [p for p, v in fir_paths().items() if v != before[p]]
             want = upfirdn2d_reference(x, k, **kw)
             d = float((got.float() - want.float()).abs().max())
+            where = f"upfirdn2d {dtype} at {site[:7]}"
             check(got.dtype == dtype and got.shape == want.shape
-                  and d <= tol, f"upfirdn2d {dtype} at {site[:7]}: err {d}")
+                  and d <= tol, f"{where}: err {d}")
+            check(torch.equal(got, upfirdn2d(x, k, **kw)),
+                  f"{where}: not bit-for-bit")
+            check(path == ["narrow" if site[2] == 3 else "tiled"],
+                  f"{where}: took path {path}")
+            fir_path_counts[path[0]] = fir_path_counts.get(path[0], 0) + 1
             if dtype == torch.float32:
                 err["upfirdn2d"] = max(err["upfirdn2d"], d)
     emit({"kernel_parity": {"gn_sites": len(gn_cases),
                             "gn_paths": dict(paths),
                             "conv_sites": len(sites),
-                            "fir_sites": len(set(firs)), "batch": n,
+                            "fir_sites": len(set(firs)),
+                            "fir_paths": fir_path_counts, "batch": n,
                             "max_abs_err_fp32": err}})
     return err
 
@@ -436,16 +465,18 @@ def model_parity(torch, dev, rect_state):
         reset_counts()
         got = ncsnpp(torch, dev, rect_state)(x.to(dev), t.to(dev))
         torch.cuda.synchronize()
-        launches = read_counts()
+        launches, paths = read_counts(), fir_paths()
     vmax = float(want.abs().max())
     rel = float((got.cpu() - want).abs().max()) / vmax
     emit({"model_parity": "ncsnpp_256", "batch": 1, "max_abs_v": vmax,
-          "rel_err": rel, "rel_tol": NCSNPP_REL_TOL, "launches": launches})
+          "rel_err": rel, "rel_tol": NCSNPP_REL_TOL, "launches": launches,
+          "fir_paths": paths})
     check(torch.isfinite(got).all().item() and vmax > 1e-3,
           f"NCSN++ output not finite or vanishing (max {vmax})")
     check(rel <= NCSNPP_REL_TOL, f"NCSN++ card vs CPU: rel err {rel}")
     check(launches == only(upfirdn2d=RECT_FIR_SITES),
           f"NCSN++ launches {launches}")
+    check(paths == fir_forward_paths(1), f"NCSN++ FIR paths {paths}")
 
 
 # ------------------------------------------------------------ 6. main path
@@ -469,6 +500,7 @@ def cli_run(torch, extra, steps, rect_ckpt=None):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_counts()
+        paths = fir_paths()
         ip = args.save_path_ip
         for f in ("psnr_rec_batch0.txt", "psnr_noisy_batch0.txt",
                   "ssim_rec_batch0.txt", "psnr_rec_average.txt",
@@ -490,7 +522,8 @@ def cli_run(torch, extra, steps, rect_ckpt=None):
             mstat = f.readline().strip()
     return {"opts": extra, "steps": steps, "seconds": seconds,
             "final_psnr_rec": psnr, "final_psnr_noisy": float(row[1]),
-            "launches": launches, "time_stats": tstat, "memory_stats": mstat}
+            "launches": launches, "fir_paths": paths, "time_stats": tstat,
+            "memory_stats": mstat}
 
 
 def main_path(torch, rect_ckpt):
@@ -520,6 +553,9 @@ def main_path(torch, rect_ckpt):
                         rect_ckpt if extra[:2] == rect[:2] else None)
         check(r["launches"] == expect,
               f"{name}: launches {r['launches']}, expected {expect}")
+        if name.startswith("rect"):
+            check(r["fir_paths"] == fir_forward_paths(steps),
+                  f"{name}: upfirdn2d paths {r['fir_paths']}")
         emit({"main_path": name, "sites_per_forward":
               RECT_FIR_SITES if name.startswith("rect") else None, **r})
         runs[name] = r
@@ -594,26 +630,32 @@ GN_KERNEL_NAMES = ("gn_cluster_kernel", "gn_moments_kernel",
                    "gn_normalize_kernel")
 
 
-def device_ms(torch, fn, names, reps=5):
-    """Device time of one call of ``fn``: the time torch.profiler records
-    for the kernels whose names contain one of ``names``, over ``reps``
-    calls.  Unlike CUDA events around back-to-back calls, it leaves out the
-    device's idle time while the host prepares the next launch, which
-    small sites can spend more time in than in their kernel."""
+def device_ms_each(torch, fns, names, reps=10):
+    """Device time of one call of each of ``fns``, from one torch.profiler
+    session: ``reps`` calls of each in turn, each launching one kernel whose
+    name contains one of ``names``; the kernels, in the order they ran,
+    belong to the calls in the order they were made."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        for fn in fns:
+            for _ in range(reps):
+                fn()
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA
-             and any(name in ev.key for name in names))
-    check(us > 0, f"torch.profiler recorded no kernel named {names}")
-    return us / 1e3 / reps
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA
+                  and any(name in ev.name for name in names)),
+                 key=lambda ev: ev.time_range.start)
+    check(len(evs) == reps * len(fns),
+          f"torch.profiler recorded {len(evs)} kernels named {names}, "
+          f"expected {reps * len(fns)}")
+    return [sum(ev.time_range.elapsed_us()
+                for ev in evs[i * reps:(i + 1) * reps]) / 1e3 / reps
+            for i in range(len(fns))]
 
 
 def time_gn_bm(torch, dev, gn_sites, dtype, n=BENCH_BATCH):
@@ -683,12 +725,33 @@ def fir_library(torch, x, k, up, down, pad):
     fail(f"no library call for upfirdn2d up={up} down={down} pad={pad}")
 
 
+def fir_site_key(site):
+    """h x w x c, "up" or "down": the by-site key of an NCSN++ FIR site."""
+    h, w, c, up = site[:4]
+    return f"{h}x{w}x{c} {'up' if up > 1 else 'down'}"
+
+
+def fir_bounds_ms(site, n, item):
+    """(bytes, operations) bound of one launch at n images: one read of x
+    and one write of y; 2 flops for each tap on a non-zero input."""
+    h, w, c, up, down, p0, p1, taps = site
+    kk = len(taps)
+    oh = (h * up + p0 + p1 - kk) // down + 1
+    ow = (w * up + p0 + p1 - kk) // down + 1
+    out = n * oh * ow * c
+    return (1e3 * (n * h * w * c + out) * item / MEM_BW,
+            1e3 * 2 * (kk // up) ** 2 * out / PEAK["float32"])
+
+
 def time_fir(torch, dev, firs, dtype):
+    """Per NCSN++ forward at the main-path batch, and by site: launches per
+    forward, then the kernel's, the bound's and the library call's ms for
+    all of that site's launches."""
     from pnpflow_tpu_torch.ops.upfirdn import upfirdn2d, upfirdn2d_reference
 
     n, item = MAIN_BATCH, torch.finfo(dtype).bits // 8
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
-           "ops_ms": 0.0}
+           "ops_ms": 0.0, "by_site": {}}
     for site, cnt in Counter(firs).items():
         x, k, kw = fir_inputs(torch, dev, n, site, dtype, 0)
         lib = fir_library(torch, x, k, **kw)
@@ -697,15 +760,17 @@ def time_fir(torch, dev, firs, dtype):
                   .abs().max())
         check(d <= (1e-5 if dtype == torch.float32 else 5e-2),
               f"library call disagrees at {site[:7]}: {d}")
-        tot["ms"] += cnt * cuda_ms(torch, lambda: upfirdn2d(x, k, **kw))
+        ms = cnt * cuda_ms(torch, lambda: upfirdn2d(x, k, **kw))
+        lib_ms = cnt * cuda_ms(torch, lib)
+        bytes_ms, ops_ms = (cnt * b for b in fir_bounds_ms(site, n, item))
+        tot["by_site"][fir_site_key(site)] = [cnt, ms, max(bytes_ms, ops_ms),
+                                              lib_ms]
+        tot["ms"] += ms
         tot["plain_ms"] += cnt * cuda_ms(
             torch, lambda: upfirdn2d_reference(x, k, **kw), 2)
-        tot["library_ms"] += cnt * cuda_ms(torch, lib)
-        # the multiply-adds this data needs: taps on inserted zeros skipped
-        kk, up = k.shape[0], kw["up"]
-        taps_used = (kk // up) ** 2
-        tot["bytes_ms"] += cnt * 1e3 * (x.numel() + y.numel()) * item / MEM_BW
-        tot["ops_ms"] += cnt * 1e3 * 2 * taps_used * y.numel() / PEAK["float32"]
+        tot["library_ms"] += lib_ms
+        tot["bytes_ms"] += bytes_ms
+        tot["ops_ms"] += ops_ms
     return tot
 
 
@@ -896,29 +961,55 @@ def time_rectified(torch, dev, rect_state):
 
 
 # ------------------------------------------------------------- 8. profiles
-def profiles(torch, dev, gn_sites, rect_state):
+def profiles(torch, dev, gn_sites, firs, rect_state):
     """torch.profiler readings, taken last: once the profiler has run,
     later launches can cost the host more, so no timing above follows it.
-    The GroupNorm kernels' device time per U-Net forward for both entries
-    at both batches, and kernel breakdowns of one U-Net forward with
+    From one profiler session, the GroupNorm kernels' device time per U-Net
+    forward for both entries at both batches and the upfirdn2d kernels' per
+    NCSN++ forward by site; then kernel breakdowns of one U-Net forward with
     ``fused_norm`` True per dtype and of one float32 NCSN++ 256^2 forward."""
     from pnpflow_tpu_torch.ops.gn_swish import groupnorm_swish_fwd
     from pnpflow_tpu_torch.ops.gn_swish_bm import groupnorm_swish_bm_fwd
 
-    out = {}
-    for name, fwd in (("groupnorm_swish", groupnorm_swish_fwd),
-                      ("groupnorm_swish_bm", groupnorm_swish_bm_fwd)):
-        for n in (BENCH_BATCH, MAIN_BATCH):
-            for dtype in (torch.float32, torch.bfloat16):
-                ms = 0.0
-                with torch.inference_mode():
-                    for (h, c, swish), k in Counter(gn_sites).items():
-                        x, s, b = gn_inputs(torch, dev, n, h, c, dtype, 0)
-                        ms += k * device_ms(
-                            torch, lambda: fwd(x, s, b, 32, 1e-6, swish),
-                            GN_KERNEL_NAMES)
-                out[f"{name}/{n}/{str(dtype)[6:]}"] = ms
-    emit({"gn_device_ms_per_forward": out})
+    from pnpflow_tpu_torch.ops.upfirdn import upfirdn2d
+
+    # the GroupNorm and FIR kernels' device times come from one profiler
+    # session, which keeps the profiler's starts and stops few: every site
+    # of both GroupNorm entries at both batches (the flagship sites all take
+    # the one-kernel cluster path) and every NCSN++ FIR site, per dtype
+    calls, rows = [], []
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            for n in (BENCH_BATCH, MAIN_BATCH):
+                for (h, c, swish), k in Counter(gn_sites).items():
+                    x, s, b = gn_inputs(torch, dev, n, h, c, dtype, 0)
+                    for name, fwd in (
+                            ("groupnorm_swish", groupnorm_swish_fwd),
+                            ("groupnorm_swish_bm", groupnorm_swish_bm_fwd)):
+                        calls.append(functools.partial(fwd, x, s, b, 32,
+                                                       1e-6, swish))
+                        rows.append(("gn", f"{name}/{n}/{dt}", k, None))
+            for site, k in Counter(firs).items():
+                x, taps, kw = fir_inputs(torch, dev, MAIN_BATCH, site, dtype,
+                                         0)
+                calls.append(functools.partial(upfirdn2d, x, taps, **kw))
+                rows.append(("fir", dt, k, site))
+        each = device_ms_each(torch, calls, GN_KERNEL_NAMES + ("upfirdn2d",))
+    gn, fir = {}, {}
+    for (kind, key, k, site), ms in zip(rows, each):
+        if kind == "gn":
+            gn[key] = gn.get(key, 0.0) + k * ms
+            continue
+        res = fir.setdefault(key, {"ms": 0.0, "bound_ms": 0.0, "by_site": {}})
+        item = 4 if key == "float32" else 2
+        bound = k * max(fir_bounds_ms(site, MAIN_BATCH, item))
+        res["by_site"][fir_site_key(site)] = [k, k * ms, bound]
+        res["ms"] += k * ms
+        res["bound_ms"] += bound
+    emit({"gn_device_ms_per_forward": gn})
+    emit({"fir_device_ms_per_forward": fir, "batch": MAIN_BATCH,
+          "by_site": "[launches per forward, device ms, bound ms]"})
 
     g = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn(BENCH_BATCH, 64, 64, 3, generator=g, device=dev)
@@ -975,7 +1066,7 @@ def main():
     with phase("timing/rectified"):
         time_rectified(torch, dev, rect_state)
     with phase("profiles"):
-        profiles(torch, dev, gn_sites, rect_state)
+        profiles(torch, dev, gn_sites, firs, rect_state)
     emit({"kernels": kernels})
     emit({"seconds": time.perf_counter() - t_all})
     print(card, flush=True)

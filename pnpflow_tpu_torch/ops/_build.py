@@ -32,7 +32,7 @@ SOURCES = {
     ),
     "upfirdn2d": (
         "upfirdn2d_launch",
-        [_I, _P, _P, ctypes.POINTER(ctypes.c_float)] + [_I] * 10 + [_P],
+        [_I, _I, _P, _P, ctypes.POINTER(ctypes.c_float)] + [_I] * 19 + [_P],
     ),
     "gn_swish": (
         "gn_swish_launch",

@@ -12,13 +12,23 @@ are applied as a true convolution with float32 accumulation, and every
 ``down``-th output is kept, stored in x's dtype.
 
 What bounds it on an H100: bytes.  It does at most K*K multiply-adds per
-output (16 for the NCSN++ taps), far below compute, so the least time is one
-read of x and one write of y over 3.35 TB/s.  What the design does about it
-(``csrc/upfirdn2d.cu``): the TPU kernel needs the zero-inserted, padded image
-in VMEM; here each output element finds its inputs by index arithmetic, so
-nothing padded or zero-filled is ever written to device memory, and taps that
-fall on inserted zeros are skipped.  Threads run over the output with C
-innermost, so neighbouring threads load neighbouring addresses.
+output (16 for the NCSN++ taps, of which 4 meet real samples at an up site),
+far below compute, so the least time is one read of x and one write of y
+over 3.35 TB/s.  What the design does about it (``csrc/upfirdn2d.cu``): the
+TPU kernel needs the zero-inserted, padded image in VMEM; here that image
+exists nowhere.  :func:`fir_plan` picks one of three paths from the shape:
+
+* "tiled", the NCSN++ sites (K = 4, up 1 / down 2 or up 2 / down 1, pixels
+  of whole 16-byte vectors, x 16-byte aligned): a block stages the input
+  footprint of a TH x TW output tile and a chunk of channels once into
+  shared memory (16-byte ``cp.async``, zero-filled padding), and each thread
+  computes a 2 x 2 output quad (up) or two neighbours (down) from a window
+  of that footprint, with the taps of each phase (:func:`fir_phase_table`,
+  derived from ``pad0 mod up``) resolved at compile time;
+* "narrow", the same kinds on scalar channels: pixels that are not whole
+  16-byte vectors (the C = 3 image pyramids) or an unaligned x;
+* "general", any other K <= 8, up or down: one thread per output pixel and
+  four channels, which finds its inputs by index arithmetic.
 
 Beside the kernel: :func:`upfirdn2d_reference`, the plain PyTorch version
 (used for CPU tensors and as the kernel's yardstick), and the resampling
@@ -30,6 +40,8 @@ every CUDA tensor takes the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,13 +50,25 @@ import torch.nn.functional as F
 from pnpflow_tpu_torch.ops import _build
 
 __all__ = [
-    "setup_kernel", "upfirdn2d", "upfirdn2d_reference", "upsample_2d",
+    "setup_kernel", "upfirdn2d", "upfirdn2d_reference", "fir_plan",
+    "FirPlan", "fir_geometry", "fir_phase_table", "upsample_2d",
     "downsample_2d", "upsample_conv_2d", "conv_downsample_2d",
     "naive_upsample_2d", "naive_downsample_2d",
 ]
 
 MAX_TAPS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+PATHS = ("tiled", "narrow", "general")
+_ERR_PLAN = -3
+TILE_K = 4                  # taps of the tiled and narrow paths
+TILE_KINDS = ((1, 2), (2, 1))   # their (up, down): the NCSN++ down and up
+SMEM_MAX = 48 * 1024        # a block's shared memory without opting in
+MAX_THREADS = 512           # the tile kernel's __launch_bounds__
+GRID_MAX = 65535            # blocks along the grid's y and z
+# (task rows, threads of a task row) of a tile: a down thread owns two
+# outputs of a row, an up thread a 2 x 2 quad
+TILE_TASKS = {(1, 2): (8, 32), (2, 1): (4, 128)}
+THREADS = 256               # threads a block aims at
 
 
 def setup_kernel(k) -> np.ndarray:
@@ -75,6 +99,127 @@ def _check_args(x, k, up, down, pad):
     return pad0, pad1
 
 
+class FirGeometry(NamedTuple):
+    """Per-thread geometry of a tiled kind (``csrc/upfirdn2d.cu:Kind``): a
+    thread owns ``ry`` x ``rx`` outputs; the next task's window starts
+    ``sy`` rows / ``sx`` columns further into the footprint; a window is
+    ``wh`` x ``ww`` footprint cells."""
+    ry: int
+    rx: int
+    sy: int
+    sx: int
+    wh: int
+    ww: int
+
+
+def _window(r_count, up, down, pm):
+    return max((r * down + p - pm) // up + 1 for r in range(r_count)
+               for p in range(TILE_K)
+               if r * down + p - pm >= 0 and (r * down + p - pm) % up == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def fir_geometry(up: int, down: int, pm: int) -> FirGeometry:
+    ry = up
+    rx = 2 if (up, down) == (1, 2) else up
+    return FirGeometry(ry, rx, ry * down // up, rx * down // up,
+                       _window(ry, up, down, pm), _window(rx, up, down, pm))
+
+
+@functools.lru_cache(maxsize=None)
+def fir_phase_table(up: int, down: int, pm: int) -> tuple:
+    """Which window cell meets which tap of which output, for phase
+    ``pm = pad0 % up``: (rows, columns), each a tuple of ``(w, r, t)`` =
+    window row (column) ``w`` feeds a thread's output row (column) ``r``
+    through tap row (column) ``t`` of the flipped taps, with
+    ``t = w * up + pm - r * down``.  The kernel unrolls the same entries at
+    compile time, in this order (w, then r)."""
+    g = fir_geometry(up, down, pm)
+
+    def axis(wins, outs):
+        return tuple((w, r, w * up + pm - r * down) for w in range(wins)
+                     for r in range(outs)
+                     if 0 <= w * up + pm - r * down < TILE_K)
+
+    return axis(g.wh, g.ry), axis(g.ww, g.rx)
+
+
+class FirPlan(NamedTuple):
+    """How ``csrc/upfirdn2d.cu`` runs one shape.  ``path``: "tiled",
+    "narrow" or "general" (the rest is 0 there).  A block is (``cv``, ``it``,
+    ``jz``) threads: ``cv`` cells of a channel chunk (16-byte vectors of
+    ``v`` channels on "tiled", single channels on "narrow"), ``it`` task
+    columns, ``jz`` thread rows that stride over ``jt`` task rows.  It owns
+    a ``tile`` (th, tw) of outputs, stages a ``foot`` (fh, fw) of input
+    pixels in ``smem`` bytes, and the grid is (chunks, tiles_y * tiles_x,
+    n); ``phase`` is (pad0 % up, pad0 // up)."""
+    path: str
+    oh: int
+    ow: int
+    cv: int = 0
+    v: int = 0
+    it: int = 0
+    jt: int = 0
+    jz: int = 0
+    tile: tuple = (0, 0)
+    foot: tuple = (0, 0)
+    tiles: tuple = (0, 0)
+    phase: tuple = (0, 0)
+    chunks: int = 0
+    smem: int = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _largest_divisor(n: int, cap: int) -> int:
+    return max(d for d in range(1, min(n, cap) + 1) if n % d == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def fir_plan(n: int, h: int, w: int, c: int, up: int, down: int, pad0: int,
+             pad1: int, kk: int, itemsize: int,
+             aligned: bool = True) -> FirPlan:
+    """The launch plan for upfirdn2d of an (n, h, w, c) input.
+
+    K = 4 with (up, down) of :data:`TILE_KINDS` takes "tiled" where a pixel
+    is whole 16-byte vectors and x is 16-byte ``aligned``, else "narrow";
+    every other shape takes "general".  A chunk is the largest divisor of
+    the pixel's cells up to 8 vectors (one 128-byte line) or 32 channels.
+    A tile is :data:`TILE_TASKS` task rows by as many task columns as fill a
+    row's threads, both cut to the output, so a large site has thousands of
+    blocks and a small one a block per sample and chunk.  A chunk's pixel
+    is at most 128 bytes, so a footprint takes at most 41,472 bytes, under
+    :data:`SMEM_MAX`."""
+    oh = (h * up + pad0 + pad1 - kk) // down + 1
+    ow = (w * up + pad0 + pad1 - kk) // down + 1
+    if max(n * h * w * c, n * oh * ow * c) >= 2**31:
+        raise ValueError("upfirdn2d kernel takes fewer than 2^31 elements")
+    if kk != TILE_K or (up, down) not in TILE_KINDS:
+        return FirPlan("general", oh, ow)
+    if aligned and (c * itemsize) % 16 == 0:
+        path, v = "tiled", 16 // itemsize
+        cv, cell = _largest_divisor(c // v, 8), 16
+    else:
+        path, v = "narrow", 1
+        cv, cell = _largest_divisor(c, 32), 4
+    pm, q = pad0 % up, pad0 // up
+    g = fir_geometry(up, down, pm)
+    jt, row_threads = TILE_TASKS[(up, down)]
+    it = min(max(1, row_threads // cv), _cdiv(ow, g.rx))
+    jt = min(jt, _cdiv(oh, g.ry))
+    jz = min(jt, max(1, THREADS // (cv * it)))
+    fh, fw = (jt - 1) * g.sy + g.wh, (it - 1) * g.sx + g.ww
+    th, tw = g.ry * jt, g.rx * it
+    plan = FirPlan(path, oh, ow, cv, v, it, jt, jz, (th, tw), (fh, fw),
+                   (_cdiv(oh, th), _cdiv(ow, tw)), (pm, q), c // (cv * v),
+                   fh * fw * cv * cell)
+    if plan.tiles[0] * plan.tiles[1] > GRID_MAX or n > GRID_MAX:
+        raise ValueError(f"upfirdn2d grid too large for {n} samples: {plan}")
+    return plan
+
+
 def upfirdn2d_reference(x, k, up: int = 1, down: int = 1, pad=(0, 0)):
     """Plain PyTorch upfirdn2d: zero-insert, pad, depthwise conv with the
     flipped taps in float32, decimate; the result in x's dtype."""
@@ -93,11 +238,27 @@ def upfirdn2d_reference(x, k, up: int = 1, down: int = 1, pad=(0, 0)):
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
+_TAPS = {}
+
+
+def _flipped_taps(k, up, down, pad0, pad1):
+    """The flipped taps as a ctypes array, built once per distinct (taps,
+    up, down, pad)."""
+    key = (k.shape[0], k.tobytes(), up, down, pad0, pad1)
+    taps = _TAPS.get(key)
+    if taps is None:
+        flipped = k[::-1, ::-1].ravel()
+        taps = _TAPS[key] = (ctypes.c_float * flipped.size)(
+            *flipped.tolist())
+    return taps
+
+
 def upfirdn2d(x, k, up: int = 1, down: int = 1, pad=(0, 0)):
     """upfirdn2d on NHWC.  The arguments are checked as the kernel takes
     them on every device, so a CPU run finds what the card would refuse;
     then CPU tensors take :func:`upfirdn2d_reference` and CUDA tensors
-    launch the kernel (counted in ``upfirdn2d.launches``) or raise."""
+    launch the kernel on the path :func:`fir_plan` picks (counted in
+    ``upfirdn2d.launches`` and ``upfirdn2d.paths``) or raise."""
     k = np.asarray(k, dtype=np.float32)
     pad0, pad1 = _check_args(x, k, up, down, pad)
     if x.dtype not in _DTYPE_CODE:
@@ -107,31 +268,41 @@ def upfirdn2d(x, k, up: int = 1, down: int = 1, pad=(0, 0)):
     kk = k.shape[0]
     if kk > MAX_TAPS:
         raise ValueError(f"FIR kernel of size {kk} exceeds {MAX_TAPS}")
+    n, h, w, c = x.shape
+    plan = fir_plan(n, h, w, c, up, down, pad0, pad1, kk, x.element_size(),
+                    x.data_ptr() % 16 == 0)
     if x.device.type == "cpu":
         return upfirdn2d_reference(x, k, up, down, pad)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    n, h, w, c = x.shape
-    oh = (h * up + pad0 + pad1 - kk) // down + 1
-    ow = (w * up + pad0 + pad1 - kk) // down + 1
-    if max(x.numel(), n * oh * ow * c) >= 2**31:
-        raise ValueError("upfirdn2d kernel takes fewer than 2^31 elements")
-    flipped = k[::-1, ::-1].ravel()
-    taps = (ctypes.c_float * flipped.size)(*flipped.tolist())
 
     launch = _build.load("upfirdn2d")
-    y = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(), taps,
-                     kk, n, h, w, c, oh, ow, up, down, pad0, stream)
+    y = torch.empty((n, plan.oh, plan.ow, c), dtype=x.dtype, device=x.device)
+    args = (_DTYPE_CODE[x.dtype], PATHS.index(plan.path), x.data_ptr(),
+            y.data_ptr(), _flipped_taps(k, up, down, pad0, pad1), kk, n, h, w,
+            c, plan.oh, plan.ow, up, down, pad0, plan.cv, plan.it, plan.jt,
+            plan.jz, *plan.foot, plan.tiles[1], plan.tiles[0], plan.smem)
+    # the raw stream handle, and no device switch where none is needed,
+    # cut the host's cost per call, which every small site pays
+    idx = x.device.index
+    if idx == torch.cuda.current_device():
+        err = launch(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(x.device):
+            err = launch(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if err == _ERR_PLAN:
+        raise RuntimeError(f"upfirdn2d plan disagrees with the kernel's "
+                           f"geometry: {plan}")
     if err != 0:
-        raise RuntimeError(f"upfirdn2d launch failed (error {err})")
+        raise RuntimeError(f"upfirdn2d launch failed (error {err}) for "
+                           f"{tuple(x.shape)} {x.dtype}: {plan}")
     upfirdn2d.launches += 1
+    upfirdn2d.paths[plan.path] += 1
     return y
 
 
 upfirdn2d.launches = 0
+upfirdn2d.paths = dict.fromkeys(PATHS, 0)
 
 
 def upsample_2d(x, k=None, factor: int = 2, gain: float = 1.0):

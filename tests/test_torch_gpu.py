@@ -17,7 +17,7 @@ from pnpflow_tpu_torch.ops.gn_swish import launch as gn_launch
 from pnpflow_tpu_torch.ops.gn_swish_bm import (
     groupnorm_swish_bm, groupnorm_swish_bm_fwd)
 from pnpflow_tpu_torch.ops.upfirdn import (
-    setup_kernel, upfirdn2d, upfirdn2d_reference)
+    fir_plan, setup_kernel, upfirdn2d, upfirdn2d_reference)
 from pnpflow_tpu_torch.models.ncsnpp import NCSNpp, init_ncsnpp
 from pnpflow_tpu_torch.models.unet import VelocityUNet, init_weights
 
@@ -249,6 +249,95 @@ def test_upfirdn2d_rejects_what_it_cannot_take(cuda):
         upfirdn2d(x, setup_kernel([1, 3, 3, 1]), pad=(-1, 2))
     with pytest.raises(TypeError):
         upfirdn2d(x.half(), setup_kernel([1, 3, 3, 1]), pad=(2, 1))
+
+
+FIR_DOWN, FIR_UP = (1, 2, (1, 1)), (2, 1, (2, 1))
+# every distinct upfirdn2d site of one NCSN++ 256^2 forward: (h, c, kind)
+NCSNPP_FIR_SITES = [
+    (h, c, kind)
+    for kind, sizes in ((FIR_DOWN, (256, 128, 64, 32, 16, 8)),
+                        (FIR_UP, (4, 8, 16, 32, 64, 128)))
+    for h in sizes for c in ((128 if h >= 128 else 256), 3)]
+
+
+def _check_fir(x, k, up, down, pad, path):
+    """One launch on ``path`` (counted once), within the plain version's
+    tolerance, and bit for bit on a second call."""
+    tol = 1e-5 if x.dtype == torch.float32 else 2e-2
+    before = upfirdn2d.launches, dict(upfirdn2d.paths)
+    y = upfirdn2d(x, k, up=up, down=down, pad=pad)
+    torch.cuda.synchronize()
+    assert upfirdn2d.launches == before[0] + 1
+    assert upfirdn2d.paths == {p: v + (p == path)
+                               for p, v in before[1].items()}
+    want = upfirdn2d_reference(x, k, up=up, down=down, pad=pad)
+    assert y.shape == want.shape and y.dtype == x.dtype
+    assert float((y.float() - want.float()).abs().max()) <= tol
+    # fixed-order fp32 sums, no atomics
+    assert torch.equal(y, upfirdn2d(x, k, up=up, down=down, pad=pad))
+
+
+def _fir_taps(up):
+    return setup_kernel([1, 3, 3, 1]) * (4.0 if up > 1 else 1.0)
+
+
+@pytest.mark.parametrize("site", NCSNPP_FIR_SITES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upfirdn2d_ncsnpp_sites(cuda, site, dtype):
+    h, c, (up, down, pad) = site
+    n = 2 if h >= 128 else 4
+    g = torch.Generator(device=cuda).manual_seed(h * c + up)
+    x = torch.randn(n, h, h, c, generator=g, device=cuda).to(dtype)
+    _check_fir(x, _fir_taps(up), up, down, pad,
+               "narrow" if c == 3 else "tiled")
+
+
+# (n, h, w, c, kind): tiles that cross the right and bottom edges, outputs
+# smaller than one tile (4^2 down to 2^2, 1 x 3 up to 2 x 6), channel
+# chunks of fewer than 8 vectors, C = 3, bf16 C = 12 (24-byte pixels take
+# the narrow path, 48-byte fp32 pixels the tiled one), and an up phase of
+# pad0 = 3
+FIR_EDGE_CASES = [
+    (3, 17, 23, 128, FIR_DOWN), (2, 33, 47, 128, FIR_UP),
+    (3, 4, 4, 256, FIR_DOWN), (2, 1, 3, 256, FIR_UP),
+    (2, 9, 11, 16, FIR_DOWN), (2, 13, 5, 8, FIR_UP),
+    (3, 31, 29, 3, FIR_DOWN), (3, 15, 21, 3, FIR_UP),
+    (2, 16, 16, 12, FIR_DOWN), (2, 16, 16, 12, FIR_UP),
+    (2, 11, 13, 64, (2, 1, (3, 2))),
+]
+
+
+@pytest.mark.parametrize("case", FIR_EDGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upfirdn2d_tiles_at_edges_and_narrow_pixels(cuda, case, dtype):
+    n, h, w, c, (up, down, pad) = case
+    g = torch.Generator(device=cuda).manual_seed(h * w + c)
+    x = torch.randn(n, h, w, c, generator=g, device=cuda).to(dtype)
+    plan = fir_plan(n, h, w, c, up, down, pad[0], pad[1], 4,
+                    x.element_size())
+    assert plan.path == ("tiled" if (c * x.element_size()) % 16 == 0
+                         else "narrow")
+    _check_fir(x, _fir_taps(up), up, down, pad, plan.path)
+
+
+@pytest.mark.parametrize("kind", [FIR_DOWN, FIR_UP])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upfirdn2d_view_offset_by_one_element(cuda, kind, dtype):
+    """An x that starts one element past a 16-byte boundary cannot take the
+    tiled path's 16-byte copies: it takes the narrow path."""
+    up, down, pad = kind
+    base = torch.randn(2 * 16 * 16 * 128 + 1, device=cuda).to(dtype)
+    x = base[1:].view(2, 16, 16, 128)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _check_fir(x, _fir_taps(up), up, down, pad, "narrow")
+    _check_fir(x.clone(), _fir_taps(up), up, down, pad, "tiled")
+
+
+def test_upfirdn2d_other_kinds_take_the_general_path(cuda):
+    x = torch.randn(2, 12, 12, 8, device=cuda)
+    _check_fir(x, setup_kernel([1, 3, 3, 1]), 2, 2, (2, 2), "general")
+    _check_fir(x, setup_kernel([1, 3, 3, 1]), 1, 1, (2, 1), "general")
+    _check_fir(x, setup_kernel([1, 2, 1]), 1, 2, (1, 1), "general")
 
 
 @pytest.mark.parametrize("resblock_type", ["biggan", "ddpm"])
