@@ -9,24 +9,34 @@ failure (nothing is caught and passed over) and prints its seconds:
 1. setup: card name and power limit, versions, TF32 flags, optional modules;
 2. build: the CUDA kernels, from the sources in the checkout, one nvcc each;
 3. sites: the shapes each kernel sees in one forward of the flagship U-Net
-   (64x64, ch 32, mult 1,2,4,8, 6 blocks, attention at 16 and 8) and of the
-   rectified NCSN++ (256x256, nf 128, mult 1,1,2,2,2,2,2, 2 blocks,
-   attention at 16);
+   (ch 32, mult 1,2,4,8, 6 blocks, attention at 16 and 8) at 64x64 and at
+   the trainer's 128x128, and of the rectified NCSN++ (256x256, nf 128,
+   mult 1,1,2,2,2,2,2, 2 blocks, attention at 16);
 4. kernel parity: each kernel against its plain PyTorch version at every
-   site, at the main-path batch of 20 images, in float32 and bf16, plus
-   every epilogue combination of the conv kernel and, for both GroupNorm
-   entries, the 128x128 U-Net's sites at 4 images (where float32 samples
-   of 64 and 96 channels fit no cluster and take the two-phase path); the
-   conv, GroupNorm and FIR kernels must also repeat bit for bit, and each
-   FIR site must take the tiled path (the narrow one at C = 3);
+   site of the main paths, in float32 and bf16: the conv kernel at the
+   64x64 and 128x128 U-Nets' sites at the main-path batch of 20 images
+   (the restoration halves), plus every epilogue combination; both
+   GroupNorm entries at the 64x64 sites at 20 images and the 128x128 ones
+   at 4 (where float32 samples of 64 and 96 channels fit no cluster and
+   take the two-phase path), and groupnorm_swish at the 128x128 sites at
+   the training batch of 128 in float32, forward and the gradients
+   through its autograd function, with the launch plans the train step
+   takes; the conv, GroupNorm and FIR kernels must also repeat bit for
+   bit, and each FIR site must take the tiled path (the narrow one at
+   C = 3);
 5. model parity: the random flagship U-Net with ``fused_norm`` True, "bm"
    and "conv" against False, and the random NCSN++ 256^2 on the card
-   against the same weights on the CPU;
+   against the same weights on the CPU; then training: the flagship at
+   128x128 and the training batch of 128, its flow-matching loss and every
+   parameter's gradient with ``fused_norm`` True against False (summed over
+   slices of 32 images);
 6. main path: the port's CLI, pnp_flow on synthetic images -- the U-Net at
    64x64 (FFT deblur; "conv" fp32 at 100 steps, "conv" bf16, True and "bm"
    at 10) and the rectified NCSN++ at 256x256 (FFT deblur fp32 at 100 steps,
-   bf16 at 10, super-resolution at 10) -- with every launch counter set to
-   0 before each run and read after;
+   bf16 at 10, super-resolution at 10) -- then ``train True eval True``:
+   the flagship ``ot`` U-Net trained at 128x128, batch 128, exact OT, fp32,
+   for 6 steps, and restored from the checkpoint it wrote (FFT deblur, 10
+   steps); every launch counter set to 0 before each run and read after;
 7. timing: CUDA-event times of each kernel, its plain version and the
    PyTorch library call, per forward at the bench shapes (U-Net: 64x64, 64
    images x 5 Monte-Carlo samples, and for conv3x3_gn and both GroupNorm
@@ -35,9 +45,10 @@ failure (nothing is caught and passed over) and prints its seconds:
    memory of a rectified step;
 8. profiles, last, since the profiler leaves later launches slower on the
    host: the GroupNorm kernels' device time per forward, the upfirdn2d
-   kernels' per NCSN++ forward and by site, and torch.profiler kernel
+   kernels' per NCSN++ forward and by site, torch.profiler kernel
    breakdowns of one U-Net forward with ``fused_norm`` True per dtype and
-   of one float32 NCSN++ forward.
+   of one float32 NCSN++ forward, and one train step of the 128x128
+   flagship at batch 128, split into forward, backward, Adam and EMA.
 
 JSON lines precede the last line, which is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -49,11 +60,14 @@ import contextlib
 import functools
 import importlib.util
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -74,6 +88,14 @@ KERNELS = ("conv3x3_gn", "groupnorm_swish", "groupnorm_swish_bm",
 TWO_PHASE_BATCH = 4     # images at the 128x128 U-Net's GroupNorm sites
 TWO_PHASE_SITES = [(128, c, True) for c in (32, 64, 96)]
 FORWARD_REPS = 5        # model forwards are the median of this many
+TRAIN_DIM = 128         # CelebA's geometry (config/dataset_config/celeba.yaml)
+TRAIN_BATCH = 128       # batch_size_train (config/main_config.yaml)
+TRAIN_EPOCHS = 3        # x 2 steps: the synthetic train split is 256 images
+TRAIN_STEPS_PER_EPOCH = 2
+TRAIN_PARITY_CHUNK = 32  # images per plain-GroupNorm slice in training parity
+CONV_SITES = 109        # conv3x3_gn launches per flagship forward
+PLOT_FORWARDS = 10      # the Euler sample plot at epoch 0, with matplotlib
+NOISE_FLOOR = 1e-6      # of the largest gradient: float32 rounding noise
 
 
 def fail(msg):
@@ -170,15 +192,16 @@ def build():
 
 
 # ---------------------------------------------------------------- 3. sites
-def unet_sites(torch, dev):
+def unet_sites(torch, dev, dim=64):
     """Record, with forward hooks on a batch-1 plain forward, the shapes each
-    kernel sees in one flagship forward: GroupNorm sites (hw, c, swish) and
-    conv sites (hw, cin, cout, prologue, sample_bias, residual)."""
+    kernel sees in one forward of the flagship at dim x dim: GroupNorm sites
+    (hw, c, swish) and conv sites (hw, cin, cout, prologue, sample_bias,
+    residual)."""
     from pnpflow_tpu_torch.models.unet import (
         ResidualBlock, SelfAttention, VelocityUNet)
 
-    m = VelocityUNet(**FLAGSHIP).to(dev).eval()
-    gn, conv = [], [(64, 3, 32, False, False, False)]
+    m = VelocityUNet(**dict(FLAGSHIP, input_height=dim)).to(dev).eval()
+    gn, conv = [], [(dim, 3, 32, False, False, False)]
 
     def block_hook(mod, inp):
         _, h, _, cin = inp[0].shape
@@ -196,10 +219,10 @@ def unet_sites(torch, dev):
         elif isinstance(mod, SelfAttention):
             mod.register_forward_pre_hook(attn_hook)
     with torch.no_grad():
-        m(torch.zeros(1, 64, 64, 3, device=dev), torch.zeros(1, device=dev))
-    gn.append((64, 32, True))  # end_norm
-    check(len(gn) == 136 and len(conv) == 109,
-          f"site count {len(gn)} / {len(conv)}")
+        m(torch.zeros(1, dim, dim, 3, device=dev), torch.zeros(1, device=dev))
+    gn.append((dim, 32, True))  # end_norm
+    check(len(gn) == gn_sites_at(dim) and len(conv) == CONV_SITES,
+          f"{dim}x{dim} site count {len(gn)} / {len(conv)}")
     return gn, conv
 
 
@@ -278,7 +301,10 @@ def fir_inputs(torch, dev, n, site, dtype, seed):
 
 
 # -------------------------------------------------------- 4. kernel parity
-def kernel_parity(torch, dev, gn_sites, conv_sites, firs):
+def kernel_parity(torch, dev, gn_sites, conv_sites, firs, train_sites):
+    """``train_sites`` are the 128x128 U-Net's (gn, conv) sites: its conv
+    sites run in the restoration half of the training CLI run, its
+    GroupNorm sites in the train step."""
     from pnpflow_tpu_torch.ops.fused_conv_gn import (
         conv3x3_gn, conv3x3_gn_reference)
     from pnpflow_tpu_torch.ops.gn_swish import (
@@ -309,10 +335,11 @@ def kernel_parity(torch, dev, gn_sites, conv_sites, firs):
                     err[name] = max(err[name], d)
     check(set(paths) == {"cluster", "two_phase"},
           f"GroupNorm parity did not reach both paths: {dict(paths)}")
+    train_plans = train_gn_parity(torch, dev, train_sites[0])
 
     combos = [(32, 64, 64, p, s, r) for p in (False, True)
               for s in (False, True) for r in (False, True)]
-    sites = sorted(set(conv_sites) | set(combos))
+    sites = sorted(set(conv_sites) | set(train_sites[1]) | set(combos))
     for dtype, ytol, mtol in ((torch.float32, 1e-4, 1e-4),
                               (torch.bfloat16, 2e-2, 2e-2)):
         for i, site in enumerate(sites):
@@ -368,11 +395,62 @@ def kernel_parity(torch, dev, gn_sites, conv_sites, firs):
                 err["upfirdn2d"] = max(err["upfirdn2d"], d)
     emit({"kernel_parity": {"gn_sites": len(gn_cases),
                             "gn_paths": dict(paths),
+                            "gn_train_plans": train_plans,
                             "conv_sites": len(sites),
                             "fir_sites": len(set(firs)),
                             "fir_paths": fir_path_counts, "batch": n,
                             "max_abs_err_fp32": err}})
     return err
+
+
+def train_gn_parity(torch, dev, sites):
+    """groupnorm_swish in float32 at each GroupNorm site of the 128x128
+    flagship and the training batch of 128, with the plans the train step's
+    forward launches there (``gn_plan`` depends on n).  The output within
+    1e-4 of the plain version and bit for bit on a repeat; x's, the scale's
+    and the bias's gradients through the autograd function within 1e-4 of
+    each gradient's max|g| against autograd through the plain version.
+    Returns each site's plan."""
+    from pnpflow_tpu_torch.ops.gn_swish import (
+        gn_plan, gn_swish_reference, groupnorm_swish, groupnorm_swish_fwd)
+
+    n, plans, worst = TRAIN_BATCH, [], {"fwd": 0.0, "grad_rel": 0.0}
+    for i, (h, c, swish) in enumerate(sorted(set(sites))):
+        where = f"groupnorm_swish float32 at {(n, h, c, swish)}"
+        x, s, b = gn_inputs(torch, dev, n, h, c, torch.float32, 300 + i)
+        with torch.no_grad():
+            got = groupnorm_swish_fwd(x, s, b, 32, 1e-6, swish)
+            torch.cuda.synchronize()
+            want = gn_swish_reference(x, s, b, 32, 1e-6, swish)
+            d = float((got - want).abs().max())
+            check(d <= 1e-4, f"{where}: err {d}")
+            check(torch.equal(got, groupnorm_swish_fwd(x, s, b, 32, 1e-6,
+                                                        swish)),
+                  f"{where}: not bit-for-bit")
+            del got, want
+        worst["fwd"] = max(worst["fwd"], d)
+        dy = torch.randn(x.shape, generator=torch.Generator(
+            device=dev).manual_seed(400 + i), device=dev)
+        grads = []
+        for fn in (groupnorm_swish, gn_swish_reference):
+            args = [a.detach().requires_grad_() for a in (x, s, b)]
+            fn(*args, 32, 1e-6, swish).backward(dy)
+            grads.append([a.grad for a in args])
+            del args
+        for k, gk, gr in zip("xsb", *grads):
+            scale = float(gr.abs().max())
+            rel = float((gk - gr).abs().max()) / scale
+            check(rel <= 1e-4, f"{where}: d{k} rel err {rel}")
+            worst["grad_rel"] = max(worst["grad_rel"], rel)
+        del x, dy, grads
+        p = gn_plan(n, h * h, c, 32, 4)
+        plans.append({"site": [h, c, swish], "path": p.path, "k": p.k})
+    torch.cuda.empty_cache()
+    emit({"kernel_parity": "groupnorm_swish_train", "batch": n,
+          "sites": len(plans), "max_abs_err": worst["fwd"],
+          "grad_worst_rel_err": worst["grad_rel"],
+          "tolerances": {"fwd_abs": 1e-4, "grad_rel_of_max": 1e-4}})
+    return plans
 
 
 # --------------------------------------------------------- 5. model parity
@@ -479,6 +557,83 @@ def model_parity(torch, dev, rect_state):
     check(paths == fir_forward_paths(1), f"NCSN++ FIR paths {paths}")
 
 
+def gn_sites_at(dim):
+    """groupnorm_swish launches per forward of the flagship at dim x dim
+    with ``fused_norm`` True: one per GroupNorm.  Attention sits at 16 and
+    8, so the 128x128 U-Net has 14 attention norms where the 64x64 one has
+    27: 123 launches against 136."""
+    import torch.nn as nn
+    from pnpflow_tpu_torch.models.unet import VelocityUNet
+
+    m = VelocityUNet(**dict(FLAGSHIP, input_height=dim))
+    return sum(isinstance(mod, nn.GroupNorm) for mod in m.modules())
+
+
+def training_parity(torch, dev):
+    """The flagship at 128x128 and the training batch of 128: the
+    flow-matching loss and every parameter's gradient with ``fused_norm``
+    True (the groupnorm_swish kernel forward at the train step's plans, its
+    plain backward) in one batch, against False (plain GroupNorm under
+    autograd), same weights and pairs.  The plain GroupNorm saves too many
+    float32 temporaries for 128 images on one card, so False sums the loss
+    and gradients of TRAIN_PARITY_CHUNK-image slices, each weighted by its
+    share of the batch (every term is per sample, so that is the same sum).
+    Loss within rel 1e-5; each gradient tensor within 1e-4 of its max|g|,
+    except tensors whose gradient is zero in exact arithmetic (under False
+    below 1e-6 of the largest gradient: rounding noise), held to being
+    noise under True."""
+    from pnpflow_tpu_torch.training.flow_matching import make_fm_loss
+
+    n, dim = TRAIN_BATCH, TRAIN_DIM
+    g = torch.Generator(device=dev).manual_seed(9)
+    x0 = torch.randn(n, dim, dim, 3, generator=g, device=dev)
+    x1 = 0.5 * torch.randn(n, dim, dim, 3, generator=g, device=dev)
+    t = torch.rand(n, generator=g, device=dev)
+    out, peak = {}, {}
+    for fused in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        m = randomized_unet(torch, dev, fused, input_height=dim)
+        fm_loss, total = make_fm_loss(m), 0.0
+        reset_counts()
+        for i in range(0, n, n if fused else TRAIN_PARITY_CHUNK):
+            sl = slice(i, i + (n if fused else TRAIN_PARITY_CHUNK))
+            share = (sl.stop - sl.start) / n
+            loss = fm_loss(x0[sl], x1[sl], t[sl]) * share
+            loss.backward()
+            total += float(loss.detach())
+        torch.cuda.synchronize()
+        out[fused] = (total, read_counts(),
+                      {k: p.grad for k, p in m.named_parameters()})
+        peak[str(fused)] = torch.cuda.max_memory_allocated()
+        del m, loss
+        torch.cuda.empty_cache()
+    (want, lw, gw), (got, lg, gg) = out[False], out[True]
+    floor = NOISE_FLOOR * max(float(v.abs().max()) for v in gw.values())
+    worst, noise = 0.0, []
+    for k, w in gw.items():
+        scale = float(w.abs().max())
+        if scale < floor:
+            noise.append(k)
+            check(float(gg[k].abs().max()) < floor,
+                  f"training parity: {k} is noise under False, not True")
+            continue
+        rel = float((gg[k] - w).abs().max()) / scale
+        worst = max(worst, rel)
+        check(rel <= 1e-4, f"training parity: {k} gradient rel err {rel}")
+    rel_loss = abs(got - want) / abs(want)
+    emit({"model_parity": "unet_training", "image": dim, "batch": n,
+          "loss": [want, got], "loss_rel_err": rel_loss,
+          "grad_worst_rel_err": worst, "grad_tensors": len(gw),
+          "noise_tensors": noise, "launches": lg,
+          "false_chunk": TRAIN_PARITY_CHUNK, "max_memory_allocated": peak,
+          "tolerances": {"loss_rel": 1e-5, "grad_rel_of_tensor_max": 1e-4,
+                         "noise_floor_of_max_grad": NOISE_FLOOR}})
+    check(all(math.isfinite(v) for v in (want, got)), "loss not finite")
+    check(rel_loss <= 1e-5, f"training parity: loss rel err {rel_loss}")
+    check(lw == only() and lg == only(groupnorm_swish=gn_sites_at(dim)),
+          f"training parity launches {lw} / {lg}")
+
+
 # ------------------------------------------------------------ 6. main path
 def cli_run(torch, extra, steps, rect_ckpt=None):
     from pnpflow_tpu_torch.main import main
@@ -564,6 +719,89 @@ def main_path(torch, rect_ckpt):
             "groupnorm_swish_bm":
                 runs["bm_fp32"]["launches"]["groupnorm_swish_bm"],
             "upfirdn2d": runs["rect_fp32"]["launches"]["upfirdn2d"]}
+
+
+def train_run(torch, batch):
+    """``train True eval True`` through the CLI: the flagship ``ot`` U-Net
+    at 128x128 trained for TRAIN_EPOCHS x TRAIN_STEPS_PER_EPOCH steps of
+    ``batch`` images (exact OT on the host, fp32, ``fused_norm`` True by the
+    trainer's default), then 10 PnP steps restoring with the
+    ``model_final.msgpack`` it wrote ("conv" by the eval default).  Checks
+    the checkpoint set, the parameter count, finite losses, that the eval
+    half loaded the checkpoint, and the exact launch counts."""
+    from pnpflow_tpu_torch.main import main
+    from pnpflow_tpu_torch.models.unet import VelocityUNet
+
+    steps = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
+    plot = importlib.util.find_spec("matplotlib") is not None
+    with tempfile.TemporaryDirectory() as out:
+        opts = ["dataset", "synthetic", "dim_image", str(TRAIN_DIM),
+                "model", "ot", "train", "True",
+                "num_epoch", str(TRAIN_EPOCHS),
+                "max_iters_per_epoch", str(TRAIN_STEPS_PER_EPOCH),
+                "batch_size_train", str(batch), "eval", "True",
+                "method", "pnp_flow", "problem", "gaussian_deblurring_FFT",
+                "steps_pnp", "10", "num_samples", "5", "batch_size_ip", "4",
+                "max_batch", "1", "save_results", "True",
+                "compute_time", "True", "output_root", out]
+        reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            args = main(["--opts"] + opts)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        msgs = [str(w.message) for w in caught]
+        d = os.path.join(out, "model", "synthetic", "ot")
+        for f in ("loss_training.txt", "model_info.txt", "model_0.msgpack",
+                  "ema_model_0.msgpack", "model_final.msgpack",
+                  "ema_model_final.msgpack", "train_state.msgpack"):
+            check(os.path.exists(os.path.join(d, f)), f"train: missing {f}")
+        n_params = sum(p.numel() for p in VelocityUNet(
+            **dict(FLAGSHIP, input_height=TRAIN_DIM)).parameters())
+        with open(os.path.join(d, "model_info.txt")) as f:
+            info = f.read()
+        check(info == f"num_params {n_params}\n",
+              f"model_info.txt: {info!r}, expected {n_params}")
+        with open(os.path.join(d, "loss_training.txt")) as f:
+            losses = [float(v) for v in f.read().split()]
+        with open(os.path.join(args.save_path, "final_psnr.txt")) as f:
+            f.readline()
+            psnr = float(f.readline().split()[0])
+        with open(os.path.join(args.save_path_ip, "time_stats.txt")) as f:
+            tstat = f.readline().strip()
+    stats = args.train_stats
+    check(len(losses) == steps and all(map(math.isfinite, losses))
+          and losses == stats["losses"],
+          f"train losses {losses} / {stats['losses']}")
+    check(not [m for m in msgs if "random init" in m or "Checkpoint at" in m
+               or "resume state" in m],
+          f"the eval half did not load the trained checkpoint: {msgs}")
+    check(math.isfinite(psnr), f"PSNR not finite: {psnr}")
+    expect = only(groupnorm_swish=gn_sites_at(TRAIN_DIM) * (
+        steps + PLOT_FORWARDS * plot), conv3x3_gn=CONV_SITES * 10)
+    check(launches == expect,
+          f"train: launches {launches}, expected {expect}")
+    step_s = statistics.median(stats["step_seconds"][1:])
+    return {"batch": batch, "image": TRAIN_DIM, "steps": steps,
+            "seconds": seconds, "seconds_per_step": step_s,
+            "images_per_s": batch / step_s,
+            "step_seconds": stats["step_seconds"],
+            "pair_seconds_per_step": statistics.median(stats["pair_seconds"]),
+            "pair_seconds": stats["pair_seconds"],
+            "max_memory_allocated": stats["max_memory_allocated"],
+            "losses": losses, "num_params": n_params, "sample_plot": plot,
+            "launches": launches, "final_psnr_rec": psnr,
+            "time_stats": tstat}
+
+
+def train_path(torch):
+    torch.cuda.empty_cache()
+    with phase("main_path/train_fp32"):
+        r = train_run(torch, TRAIN_BATCH)
+    emit({"main_path": "train_fp32", **r})
+    return r
 
 
 # --------------------------------------------------------------- 7. timing
@@ -960,14 +1198,143 @@ def time_rectified(torch, dev, rect_state):
                            torch.cuda.max_memory_allocated(dev)}})
 
 
+MARK_RUNS = (2, 4, 6, 8, 10)  # spin kernels at each boundary of a step
+PROFILE_ATTEMPTS = 3          # train-step sessions until every boundary shows
+
+
+def _marked_parts(evs, names):
+    """Split kernel events (in device order) at the runs of marker kernels:
+    boundary k is a run of MARK_RUNS[k] spin kernels, or one fewer, so a
+    boundary is still known if the profiler drops one of its kernels.
+    Returns [(part name, events)]; parts between boundaries that were not
+    found are merged under their joined names."""
+    runs, i = [], 0
+    while i < len(evs):
+        if "spin_kernel" not in evs[i].name:
+            i += 1
+            continue
+        j = i
+        while j + 1 < len(evs) and "spin_kernel" in evs[j + 1].name:
+            j += 1
+        runs.append((i, j))
+        i = j + 1
+    bounds = {}
+    for a, b in runs:
+        k = next((k for k, m in enumerate(MARK_RUNS) if b - a + 1 in (m, m - 1)),
+                 None)
+        if k is not None:
+            bounds[k] = (a, b)
+    found = sorted(bounds)
+    return [("+".join(names[k1:k2]), evs[bounds[k1][1] + 1:bounds[k2][0]])
+            for k1, k2 in zip(found, found[1:])], found
+
+
+def profile_train_step(torch, dev, batch):
+    """torch.profiler of one train step of the 128x128 flagship (seeded
+    init, ``fused_norm`` True) at ``batch``, after one warm-up step: the
+    parts of ``apply_updates`` (forward with the loss, backward, Adam, EMA)
+    are told apart by runs of marker kernels (``torch.cuda._sleep``)
+    launched between them on the same stream, and each part's kernels are
+    grouped by name.  The busy share is the kernels' device time over the
+    step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pnpflow_tpu_torch.models.unet import VelocityUNet, init_weights
+    from pnpflow_tpu_torch.training.flow_matching import (
+        ema_step, make_fm_loss, new_state)
+
+    m = init_weights(VelocityUNet(**dict(FLAGSHIP, input_height=TRAIN_DIM),
+                                  fused_norm=True), 0).to(dev)
+    state = new_state(m, 1e-4)
+    g = torch.Generator(device=dev).manual_seed(10)
+    x0, x1 = (torch.randn(batch, TRAIN_DIM, TRAIN_DIM, 3, generator=g,
+                          device=dev) for _ in range(2))
+    t = torch.rand(batch, generator=g, device=dev)
+    named = list(m.named_parameters())
+    ema, params = [state.ema[n] for n, _ in named], [p for _, p in named]
+    parts = ("forward", "backward", "adam", "ema")
+
+    def step(mark):
+        mark(0)
+        loss = make_fm_loss(m)(x0, x1, t)
+        mark(1)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        mark(2)
+        state.optimizer.step()
+        mark(3)
+        ema_step(ema, params, 0.999)
+        mark(4)
+
+    def mark(k):
+        for _ in range(MARK_RUNS[k]):
+            torch.cuda._sleep(1000)
+
+    step(lambda k: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # a session can miss kernels launched as it starts or ends, markers
+    # included: one kernel and a pause come before the first marker and
+    # after the last, and a session that lost a boundary is taken again
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t.sum()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            step(mark)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            t.sum()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        evs = sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA
+                      and ev.name not in CUPTI_RECORDS),
+                     key=lambda ev: ev.time_range.start)
+        split, found = _marked_parts(evs, parts)
+        if len(found) == len(MARK_RUNS):
+            break
+    peak = torch.cuda.max_memory_allocated(dev)
+    out, total = {}, 0.0
+    for part, part_evs in split:
+        groups, names = Counter(), Counter()
+        for ev in part_evs:
+            ms = ev.time_range.elapsed_us() / 1e3
+            groups[next((k for w, k in TRAIN_PROFILE_GROUPS if w in ev.name),
+                        "other")] += ms
+            names[ev.name[:90]] += ms
+        ms = sum(groups.values())
+        total += ms
+        out[part] = {"device_ms": ms, "kernels": len(part_evs),
+                     "groups_ms": dict(groups),
+                     "top": [[k, v] for k, v in names.most_common(6)]}
+    check(total > 0, f"train-step profile: no kernel between markers "
+          f"{found} of {len(evs)} kernels")
+    emit({"train_step_profile": {
+        "image": TRAIN_DIM, "batch": batch, "wall_ms": wall_ms,
+        "device_ms": total, "device_busy_share": total / wall_ms,
+        "max_memory_allocated": peak, "boundaries_found": found,
+        "attempts": attempt, "parts": out}})
+
+
+# keyword -> group of a train step's kernels, first match wins
+TRAIN_PROFILE_GROUPS = (
+    ("gn_cluster_kernel", "gn_swish"), ("gn_moments_kernel", "gn_swish"),
+    ("gn_normalize_kernel", "gn_swish"), ("multi_tensor_apply", "foreach"),
+    ("dgrad", "conv"), ("wgrad", "conv"), ("complex", "conv"),
+) + PROFILE_GROUPS
+
+
 # ------------------------------------------------------------- 8. profiles
-def profiles(torch, dev, gn_sites, firs, rect_state):
+def profiles(torch, dev, gn_sites, firs, rect_state, train_batch):
     """torch.profiler readings, taken last: once the profiler has run,
     later launches can cost the host more, so no timing above follows it.
     From one profiler session, the GroupNorm kernels' device time per U-Net
     forward for both entries at both batches and the upfirdn2d kernels' per
     NCSN++ forward by site; then kernel breakdowns of one U-Net forward with
-    ``fused_norm`` True per dtype and of one float32 NCSN++ 256^2 forward."""
+    ``fused_norm`` True per dtype, of one float32 NCSN++ 256^2 forward and
+    of one train step of the 128x128 flagship."""
     from pnpflow_tpu_torch.ops.gn_swish import groupnorm_swish_fwd
     from pnpflow_tpu_torch.ops.gn_swish_bm import groupnorm_swish_bm_fwd
 
@@ -1024,6 +1391,9 @@ def profiles(torch, dev, gn_sites, firs, rect_state):
     t = torch.rand(MAIN_BATCH, generator=g, device=dev) * 999.0 + 1.0
     profile_forward(torch, dev, "ncsnpp_profile",
                     ncsnpp(torch, dev, rect_state), x, t)
+    del x, t
+    torch.cuda.empty_cache()
+    profile_train_step(torch, dev, train_batch)
 
 
 def main():
@@ -1045,19 +1415,25 @@ def main():
         build()
     with phase("sites"):
         gn_sites, conv_sites = unet_sites(torch, dev)
+        train_sites = unet_sites(torch, dev, TRAIN_DIM)
         firs = fir_sites(torch, dev)
         rect_state = randomized_ncsnpp_state(torch)
     sites = {"gn": gn_sites, "conv": conv_sites, "fir": firs}
     with phase("kernel_parity"):
-        err = kernel_parity(torch, dev, gn_sites, conv_sites, firs)
+        err = kernel_parity(torch, dev, gn_sites, conv_sites, firs,
+                            train_sites)
     with phase("model_parity"):
         model_parity(torch, dev, rect_state)
+    with phase("model_parity/training"):
+        training_parity(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         rect_ckpt = os.path.join(tmp, "rectified.pt")
         # a RectifiedFlow-layout checkpoint: {model, ema, optimizer, step}
         torch.save({"model": {"module." + k: v for k, v in rect_state.items()},
                     "ema": None, "optimizer": {}, "step": 0}, rect_ckpt)
         launches = main_path(torch, rect_ckpt)
+    train = train_path(torch)
+    launches["groupnorm_swish"] += train["launches"]["groupnorm_swish"]
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
     kernels = kernel_rows(torch, dev, sites, launches, err)
@@ -1066,7 +1442,7 @@ def main():
     with phase("timing/rectified"):
         time_rectified(torch, dev, rect_state)
     with phase("profiles"):
-        profiles(torch, dev, gn_sites, firs, rect_state)
+        profiles(torch, dev, gn_sites, firs, rect_state, train["batch"])
     emit({"kernels": kernels})
     emit({"seconds": time.perf_counter() - t_all})
     print(card, flush=True)

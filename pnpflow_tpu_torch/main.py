@@ -1,14 +1,18 @@
-"""CLI entry point (port of the repository's ``main.py``, eval path).
+"""CLI entry point (port of the repository's ``main.py``).
 
-``python -m pnpflow_tpu_torch --opts key value ...`` solves an inverse
-problem with the reference's 3-tier config, ``--opts`` overrides and
-``results/{dataset}/{model}/{problem}/{method}/{split}`` layout.  It runs on
-``cuda`` unless ``--opts device cpu`` is given.  ``--opts model rectified``
-runs the NCSN++ (its FIR resampling through the ``upfirdn2d`` kernel);
-``--opts bf16 True`` runs the model in bfloat16; the default float32 mode
-turns TF32 off.
+``python -m pnpflow_tpu_torch --opts key value ...`` trains the flow-matching
+prior (``train True``, ``model ot`` or ``indep``) and solves an inverse
+problem (``eval True``) with the reference's 3-tier config, ``--opts``
+overrides and ``results/{dataset}/{model}/{problem}/{method}/{split}``
+layout, in that order, as the JAX CLI does: a run with both restores with
+the ``model_final.msgpack`` it has just written.  It runs on ``cuda`` unless
+``--opts device cpu`` is given.  Training is float32 with TF32 off;
+``--opts model rectified`` restores with the NCSN++ (its FIR resampling
+through the ``upfirdn2d`` kernel); ``--opts bf16 True`` restores in
+bfloat16, and the default float32 restoration turns TF32 off.
 
-Training (``train True``) and ``compute_metrics True`` are not ported yet.
+Not ported yet: ``compute_metrics True``, the gradient-step denoiser's
+training and the ``grain`` data backend; each raises.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from pnpflow_tpu_torch.device import resolve_device, set_fp32_parity_mode
 from pnpflow_tpu_torch.models.registry import build_model_bundle
 from pnpflow_tpu_torch.ops.degradations import make_degradation
 from pnpflow_tpu_torch.solvers.factory import build_solver
+from pnpflow_tpu_torch.training.flow_matching import FlowMatchingTrainer
 from pnpflow_tpu_torch.utils.config import load_full_config
 
 
@@ -45,10 +50,9 @@ def main(argv=None):
         torch.manual_seed(args.seed)
 
     if args.train:
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP queue 1, item 7)")
+        train(args, device)
     if not args.eval:
-        return
+        return args
 
     bf16 = bool(getattr(args, "bf16", False))
     if not bf16:
@@ -80,6 +84,34 @@ def main(argv=None):
     method = build_solver(bundle, args)
     method.run_method(data_loaders, degradation, sigma_noise)
     return args
+
+
+def train(args, device):
+    """Train the velocity field of ``model ot|indep`` in float32 on
+    ``device``; ``args.train_stats`` gets what the trainer measured."""
+    args.batch_size = args.batch_size_train
+    if args.model == "gradient_step":
+        raise NotImplementedError(
+            "gradient-step denoiser training is not ported yet (ROADMAP "
+            "queue 1, item 9)")
+    if args.model not in ("ot", "indep"):
+        raise ValueError("Model not implemented yet: choose 'ot' or "
+                         "'gradient_step'")
+    if getattr(args, "data_backend", "thread") != "thread":
+        raise NotImplementedError(
+            f"data_backend {args.data_backend!r} is not ported (ROADMAP "
+            "queue 1, item 7)")
+    print("fp32 parity mode:", set_fp32_parity_mode())
+    print("Training...")
+    data_loaders = DataLoaders(
+        args.dataset, args.batch_size_train, args.batch_size_train,
+        root=os.path.join(args.root, "data"), dim_image=args.dim_image,
+        num_channels=args.num_channels,
+    ).load_data()
+    trainer = FlowMatchingTrainer(args, device=device)
+    trainer.train(data_loaders)
+    args.train_stats = trainer.stats
+    print("Training done!")
 
 
 if __name__ == "__main__":

@@ -8,14 +8,22 @@ a native ``model_final.msgpack`` (written by the JAX package), then a
 reference torch ``model_final.pt``, else a seeded random init with a
 warning.
 
-The GroupNorm path of the U-Net comes from ``--opts fused_norm ...`` and
-defaults to ``"conv"`` here (the JAX package defaults to ``False``):
-``False`` runs no kernel of this repository on the card, while ``"conv"``
-sends every ResidualBlock through the fused ``conv3x3_gn`` kernel.
+The GroupNorm path of the U-Net comes from ``--opts fused_norm ...``.  For
+restoration it defaults to ``"conv"`` here (the JAX package defaults to
+``False``): ``False`` runs no kernel of this repository on the card, while
+``"conv"`` sends every ResidualBlock through the fused ``conv3x3_gn``
+kernel.  ``"conv"`` is forward-only, so a model built for training
+(``define_model(args, train=True)``) defaults to ``True``, the
+``groupnorm_swish`` kernel with its autograd backward, and refuses
+``"conv"``.  A ``train True eval True`` run without ``fused_norm`` therefore
+trains with ``True`` and restores with ``"conv"``.
 
-The msgpack reader decodes flax's format with the ``msgpack`` module alone:
-arrays are ext type 1, packing ``(shape, dtype name, C-order bytes)``.  Any
-other ext type, and flax's chunked large arrays, raise rather than guess.
+The msgpack reader and writer speak flax's format with the ``msgpack``
+module alone: arrays are ext type 1 and numpy scalars ext type 3, each
+packing ``(shape, dtype name, C-order bytes)``.  Any other ext type, and
+flax's chunked large arrays, raise rather than guess.
+:func:`save_params_file` writes what the JAX ``load_params`` reads: the
+envelope ``{ARCH_KEY: fingerprint, "params": tree}``.
 """
 
 from __future__ import annotations
@@ -36,10 +44,17 @@ from pnpflow_tpu_torch.utils.jax_params import (
 
 ARCH_KEY = "__pnpflow_arch__"
 _EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+MAX_LEAF_BYTES = 2 ** 30    # flax chunks larger arrays; the port does not
 
 
-def define_model(args, dtype=torch.float32) -> nn.Module:
+def define_model(args, dtype=torch.float32, train: bool = False) -> nn.Module:
+    """The model of ``args.model``.  ``train`` selects the U-Net's training
+    default, ``fused_norm True``, and refuses the forward-only ``"conv"``."""
     if args.model == "rectified":
+        if train:
+            raise NotImplementedError(
+                "NCSN++ training is not ported yet (ROADMAP queue 1, item 14)")
         return make_ncsnpp(args, dtype=dtype)
     if args.model not in ("ot", "indep", "gradient_step"):
         raise NotImplementedError(
@@ -50,10 +65,15 @@ def define_model(args, dtype=torch.float32) -> nn.Module:
     else:
         # e.g. MNIST 28x28 (28 % 8 != 0): drop the deepest level
         ch_mult, attn = (1, 2, 4), (14, 7)
+    fused = getattr(args, "fused_norm", True if train else "conv")
+    if train and fused == "conv":
+        raise ValueError(
+            'fused_norm "conv" is forward-only and cannot train: use False, '
+            'True or "bm"')
     return VelocityUNet(
         input_channels=args.num_channels, input_height=args.dim_image,
         ch=32, ch_mult=ch_mult, num_res_blocks=6, attn_resolutions=attn,
-        dtype=dtype, fused_norm=getattr(args, "fused_norm", "conv"),
+        dtype=dtype, fused_norm=fused,
     )
 
 
@@ -80,14 +100,63 @@ def _normalize_fp(fp: dict) -> dict:
 def _ext_hook(code, data):
     import msgpack
 
-    if code != _EXT_NDARRAY:
+    if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
         raise ValueError(f"unsupported msgpack ext type {code}")
-    shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
-    name = dtype_name.decode()
+    try:
+        shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
+        name = dtype_name.decode()
+    except (TypeError, ValueError, AttributeError) as exc:
+        raise ValueError(f"cannot decode msgpack ext type {code}: "
+                         f"{exc}") from exc
     if name == "bfloat16":
         raw = torch.frombuffer(bytearray(buf), dtype=torch.bfloat16)
-        return raw.float().numpy().reshape(shape)
-    return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape, order="C")
+        arr = raw.float().numpy().reshape(shape)
+    else:
+        arr = np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape,
+                                                               order="C")
+    return arr[()] if code == _EXT_NPSCALAR else arr
+
+
+def _ext_pack(obj):
+    """flax's encoding of a numpy array (ext 1) or numpy scalar (ext 3)."""
+    import msgpack
+
+    if isinstance(obj, np.generic):
+        code, arr = _EXT_NPSCALAR, np.asarray(obj)
+    elif isinstance(obj, np.ndarray):
+        code, arr = _EXT_NDARRAY, obj
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__} to msgpack")
+    if arr.nbytes > MAX_LEAF_BYTES:
+        raise ValueError(f"an array of {arr.nbytes} bytes needs flax's "
+                         "chunked encoding, which the port does not write")
+    return msgpack.ExtType(code, msgpack.packb(
+        (list(arr.shape), arr.dtype.name, arr.tobytes("C")),
+        use_bin_type=True))
+
+
+def write_msgpack(tree, path: str):
+    """Write a tree of dicts, lists, Python scalars and numpy arrays in
+    flax's msgpack format, atomically (a temporary file, then a rename)."""
+    import msgpack
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    blob = msgpack.packb(tree, default=_ext_pack, strict_types=True,
+                         use_bin_type=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+    os.replace(tmp, path)
+
+
+def save_params_file(params, path: str, fingerprint: dict | None = None):
+    """Write a flax parameter tree (``{"params": ...}`` of numpy arrays) as
+    the JAX ``save_params_file`` does: with ``fingerprint``, the envelope
+    ``{ARCH_KEY: fingerprint, "params": tree}`` that the JAX and the port's
+    ``load_params`` check against the model; without it, the raw tree."""
+    payload = (params if fingerprint is None else
+               {ARCH_KEY: _normalize_fp(fingerprint), "params": params})
+    write_msgpack(payload, path)
 
 
 def _check_unchunked(tree, path="params"):
@@ -122,7 +191,7 @@ def read_msgpack(path: str) -> tuple:
     return raw, None
 
 
-def _checked_state_dict(module, sd: dict) -> dict:
+def checked_state_dict(module, sd: dict) -> dict:
     """Raise ``ValueError`` unless ``sd`` has exactly the module's keys and
     shapes (so a failed load leaves the module untouched)."""
     want = module.state_dict()
@@ -181,8 +250,8 @@ def load_params(module, args, require: bool = False):
     if os.path.exists(paths["msgpack"]):
         tree, stored_fp = read_msgpack(paths["msgpack"])
         try:
-            sd = _checked_state_dict(module,
-                                     _state_dict_from_tree(module, tree))
+            sd = checked_state_dict(module,
+                                    _state_dict_from_tree(module, tree))
         except (KeyError, ValueError) as exc:
             if require:
                 raise

@@ -23,7 +23,9 @@ channels_last view.  ``fused_norm`` selects the GroupNorm path:
 * ``"conv"``: every ResidualBlock conv (and the begin conv) through the
   fused ``conv3x3_gn`` kernel, whose prologue applies the preceding
   GroupNorm + swish from the moments the previous kernel emitted.
-  Attention norms stay plain, as in the JAX package.
+  Attention norms stay plain, as in the JAX package.  The kernel has no
+  backward, so this mode is forward-only: it raises where a gradient would
+  be recorded (train with ``False``, ``True`` or ``"bm"``).
 
 ``dtype`` is the compute dtype (float32 or bfloat16); parameters stay
 float32 and are cast per call (the conv kernel's reordered weights are
@@ -94,9 +96,11 @@ def _conv1x1(x, conv: nn.Conv2d, dtype):
 class Conv3x3(nn.Conv2d):
     """``nn.Conv2d(cin, cout, 3, padding=1)`` that also serves the fused
     kernel its weights as HWIO ``(3, 3, C, CO)``, reordered once per dtype
-    and device and cached until ``load_state_dict`` replaces them.  The
-    fused path is inference-only: other in-place weight updates are not
-    tracked."""
+    and device and cached until the weight changes: ``load_state_dict``
+    or an in-place update (an optimizer step), which bumps the tensor's
+    version counter.  A weight made under ``torch.inference_mode`` has no
+    version counter; it can change in place only inside that mode, where
+    no optimizer runs."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, 3, padding=1)
@@ -108,11 +112,25 @@ class Conv3x3(nn.Conv2d):
 
     def kernel_weight(self, dtype):
         w = self.weight
-        key = (dtype, w.device, w.data_ptr())
+        key = (dtype, w.device, w.data_ptr(),
+               None if w.is_inference() else w._version)
         if self._hwio[0] != key:
             self._hwio = (key, w.detach().permute(2, 3, 1, 0)
                           .to(dtype).contiguous())
         return self._hwio[1]
+
+
+def check_forward_only(module: nn.Module, *inputs):
+    """Raise where ``fused_norm "conv"`` would record a gradient: its
+    kernel has no backward, and detached weights would drop the gradients
+    of every conv without a word."""
+    if torch.is_grad_enabled() and (
+            any(t.requires_grad for t in inputs)
+            or any(p.requires_grad for p in module.parameters())):
+        raise RuntimeError(
+            'fused_norm "conv" is forward-only and cannot record a '
+            "gradient: differentiate with fused_norm False, True or "
+            '"bm", or run under torch.no_grad() / torch.inference_mode()')
 
 
 def _gn(x, norm: nn.GroupNorm, fused, swish: bool):
@@ -175,7 +193,8 @@ class ResidualBlock(nn.Module):
     def _fused(self, x, temb, x_moments):
         """The whole block as two fused conv kernels; each GroupNorm rides
         its conv's prologue from the previous kernel's moments.  Returns
-        ``(out, moments)``."""
+        ``(out, moments)``.  Forward-only: ``VelocityUNet.forward`` refuses
+        a recorded gradient before the first block."""
         dt = x.dtype
         hw = x.shape[1] * x.shape[2]
         if x_moments is None:
@@ -322,6 +341,7 @@ class VelocityUNet(nn.Module):
             return h, (channel_moments(h) if fc else None)
 
         if fc:
+            check_forward_only(self, x, t)
             h0, m0 = conv3x3_gn(x, self.begin_conv.kernel_weight(dt),
                                 self.begin_conv.bias)
         else:

@@ -1,4 +1,5 @@
-"""Carry a JAX ``VelocityUNet`` or ``NCSNpp`` parameter tree into the port.
+"""Carry ``VelocityUNet`` / ``NCSNpp`` parameters and Adam state between
+the JAX package's flax trees and the port's ``state_dict`` layout.
 
 :func:`state_dict_from_flax` is the inverse of
 ``pnpflow_tpu/utils/torch_convert.py:convert_unet_state_dict``, and
@@ -6,6 +7,10 @@
 ``pnpflow_tpu/utils/ncsnpp_convert.py:convert_ncsnpp_state_dict``: a flax
 tree (``{"params": ...}`` of numpy arrays) becomes a ``state_dict`` in the
 reference torch layout that the port's modules use.
+:func:`flax_from_state_dict` goes the other way for the U-Net (the port's
+own copy of ``convert_unet_state_dict``'s mapping), and
+:func:`flax_adam_state` / :func:`adam_state_dict_from_flax` carry
+``torch.optim.Adam``'s moments to optax's ``adam`` state and back.
 
   flax Conv kernel (kH, kW, I, O) -> torch Conv2d weight (O, I, kH, kW)
   flax Dense kernel (in, out)     -> torch Linear weight (out, in)
@@ -133,3 +138,116 @@ def ncsnpp_state_dict_from_flax(params, sigmas=None) -> dict:
     if sigmas is not None:
         out["sigmas"] = torch.as_tensor(sigmas, dtype=torch.float32).cpu()
     return out
+
+
+# ---------------------------------------------------------- port -> flax
+_FIXED_TO_FLAX = {
+    "begin_conv": ("begin_conv",), "end_conv.0": ("end_norm",),
+    "end_conv.2": ("end_conv",), "temb_net.main.0": ("temb_net", "dense_0"),
+    "temb_net.main.2": ("temb_net", "dense_1"),
+}
+_MID = {"0": "mid_block_0", "1": "mid_attn", "2": "mid_block_1"}
+
+
+def _flax_path(key: str) -> tuple:
+    """A U-Net ``state_dict`` key -> the flax module path of its leaf's
+    module (the leaf name is added by :func:`_flax_leaf`)."""
+    prefix, leaf = key.rsplit(".", 1)
+    if prefix in _FIXED_TO_FLAX:
+        return _FIXED_TO_FLAX[prefix], leaf
+    parts = prefix.split(".")
+    if parts[0] == "mid_modules" and len(parts) == 3:
+        return (_MID[parts[1]], parts[2]), leaf
+    if parts[0] in ("down_modules", "up_modules"):
+        side = parts[0][:-len("_modules")]
+        m = re.fullmatch(r"(\d+)a_(\d+)(a_block|b_attn)", parts[2])
+        if m and len(parts) == 4:
+            kind = "block" if m.group(3) == "a_block" else "attn"
+            return (f"{side}_{m.group(1)}_{kind}_{m.group(2)}",
+                    parts[3]), leaf
+        m = re.fullmatch(r"(\d+)b_(downsample|upsample)", parts[2])
+        if m and parts[3:] == (["up_conv"] if side == "up" else []):
+            return (f"{side}_{m.group(1)}_{m.group(2)}", "conv"), leaf
+    raise KeyError(f"unrecognized U-Net parameter {key!r}")
+
+
+def _flax_leaf(leaf: str, v: np.ndarray) -> tuple:
+    if leaf == "bias":
+        return "bias", v
+    if leaf != "weight":
+        raise KeyError(f"unknown parameter leaf {leaf!r}")
+    if v.ndim == 4:
+        return "kernel", v.transpose(2, 3, 1, 0)
+    if v.ndim == 2:
+        return "kernel", v.T
+    return "scale", v
+
+
+def flax_from_state_dict(sd) -> dict:
+    """The port's U-Net ``state_dict`` (or any tree of tensors with its keys,
+    such as Adam's moments) -> the JAX ``VelocityUNet``'s ``{"params":
+    tree}`` of C-contiguous float32 numpy arrays.  Raises on any
+    unrecognized key."""
+    tree: dict = {}
+    for key, value in sd.items():
+        path, leaf = _flax_path(key)
+        name, arr = _flax_leaf(leaf, value.detach().float().cpu().numpy())
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        if name in node:
+            raise KeyError(f"two parameters map to {path + (name,)}")
+        node[name] = np.ascontiguousarray(arr)
+    return {"params": tree}
+
+
+# ------------------------------------------------------------ Adam state
+def flax_adam_state(optimizer: torch.optim.Adam, names) -> dict:
+    """``torch.optim.Adam``'s state for parameters ``names`` (in the order of
+    its one parameter group) -> the state dict of optax's ``adam`` state
+    ``(ScaleByAdamState(count, mu, nu), EmptyState())``:
+    ``{"0": {"count", "mu", "nu"}, "1": {}}``, with ``mu`` / ``nu`` in the
+    params' flax layout.  Before the first step: count 0, zero moments."""
+    (group,) = optimizer.param_groups
+    if len(group["params"]) != len(names):
+        raise ValueError(f"{len(names)} names for "
+                         f"{len(group['params'])} parameters")
+    mu, nu, counts = {}, {}, set()
+    for name, p in zip(names, group["params"]):
+        st = optimizer.state.get(p, {})
+        counts.add(int(st["step"]) if st else 0)
+        mu[name] = st["exp_avg"] if st else torch.zeros_like(p)
+        nu[name] = st["exp_avg_sq"] if st else torch.zeros_like(p)
+    if len(counts) != 1:
+        raise ValueError(f"parameters at different Adam steps: {counts}")
+    return {"0": {"count": np.array(counts.pop(), np.int32),
+                  "mu": flax_from_state_dict(mu),
+                  "nu": flax_from_state_dict(nu)},
+            "1": {}}
+
+
+def adam_state_dict_from_flax(tree: dict, optimizer: torch.optim.Adam,
+                              names) -> dict:
+    """The inverse of :func:`flax_adam_state`: a ``state_dict`` for
+    ``optimizer.load_state_dict``.  Raises ``KeyError`` / ``ValueError`` on
+    a tree that does not fit the optimizer's parameters."""
+    if set(tree) != {"0", "1"} or tree["1"] or set(tree["0"]) != {
+            "count", "mu", "nu"}:
+        raise ValueError("not an optax adam state: keys "
+                         f"{sorted(tree)}")
+    adam = tree["0"]
+    mu, nu = state_dict_from_flax(adam["mu"]), state_dict_from_flax(adam["nu"])
+    step = float(np.asarray(adam["count"]))
+    sd = optimizer.state_dict()
+    (group,) = sd["param_groups"]
+    if set(mu) != set(names) or set(nu) != set(names):
+        raise ValueError("Adam moments do not name the model's parameters")
+    params = optimizer.param_groups[0]["params"]
+    state = {}
+    for idx, name, p in zip(group["params"], names, params):
+        if mu[name].shape != p.shape or nu[name].shape != p.shape:
+            raise ValueError(f"{name}: moment shape {tuple(mu[name].shape)} "
+                             f"vs parameter {tuple(p.shape)}")
+        state[idx] = {"step": torch.tensor(step, dtype=torch.float32),
+                      "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+    return {"state": state, "param_groups": sd["param_groups"]}

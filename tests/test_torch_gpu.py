@@ -20,6 +20,7 @@ from pnpflow_tpu_torch.ops.upfirdn import (
     fir_plan, setup_kernel, upfirdn2d, upfirdn2d_reference)
 from pnpflow_tpu_torch.models.ncsnpp import NCSNpp, init_ncsnpp
 from pnpflow_tpu_torch.models.unet import VelocityUNet, init_weights
+from pnpflow_tpu_torch.training import flow_matching as fm
 
 pytestmark = pytest.mark.gpu
 
@@ -373,3 +374,109 @@ def test_unet_kernel_paths_match_plain(cuda, fused):
         want, got = base(x, t), m(x, t)
     rel = float((got - want).abs().max()) / float(want.abs().max())
     assert rel <= 1e-4
+
+
+# ------------------------------------------------------------- training
+FLAGSHIP_64 = dict(input_channels=3, input_height=64, ch=32,
+                   ch_mult=(1, 2, 4, 8), num_res_blocks=6,
+                   attn_resolutions=(16, 8))
+SMALL_32 = dict(input_channels=3, input_height=32, ch=32, ch_mult=(1, 2),
+                num_res_blocks=1, attn_resolutions=(16,))
+NOISE_FLOOR = 1e-6   # of the largest gradient: float32 rounding noise
+
+
+def _randomized(m, seed):
+    """Every parameter drawn at a real scale, so each carries a gradient:
+    GroupNorm scales near 1, biases small, weights ~ 1/sqrt(fan_in)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if p.dim() == 1 and ("norm" in name or name.startswith(
+                    "end_conv.0")) and name.endswith("weight"):
+                p.copy_(1.0 + 0.2 * torch.randn(p.shape, generator=g))
+            elif p.dim() == 1:
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+            else:
+                p.copy_(torch.randn(p.shape, generator=g)
+                        / p[0].numel() ** 0.5)
+    return m
+
+
+def _pairs(n, dim, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(n, dim, dim, 3, generator=g),
+            0.5 * torch.randn(n, dim, dim, 3, generator=g),
+            torch.rand(n, generator=g))
+
+
+def test_flagship_training_gradients_through_the_gn_kernel(cuda):
+    """The flagship U-Net's loss and every gradient with ``fused_norm``
+    True (the ``groupnorm_swish`` kernel, 136 launches, plain backward)
+    against False on the card, same weights and pairs: loss within rel
+    1e-5, each gradient tensor within 1e-4 of its max|g|.  Tensors whose
+    gradient is zero in exact arithmetic (rounding noise, below 1e-6 of the
+    largest gradient, under False) are held to being noise under True."""
+    sd = _randomized(VelocityUNet(**FLAGSHIP_64), 0).state_dict()
+    x0, x1, t = (a.to(cuda) for a in _pairs(4, 64, 1))
+    out = {}
+    for fused in (False, True):
+        m = VelocityUNet(**FLAGSHIP_64, fused_norm=fused)
+        m.load_state_dict(sd)
+        m.to(cuda)
+        before = groupnorm_swish_fwd.launches
+        loss = fm.make_fm_loss(m)(x0, x1, t)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[fused] = (float(loss.detach()),
+                      groupnorm_swish_fwd.launches - before,
+                      {n: p.grad for n, p in m.named_parameters()})
+    (want, n_plain, gw), (got, n_kernel, gg) = out[False], out[True]
+    assert (n_plain, n_kernel) == (0, 136)
+    assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+    floor = NOISE_FLOOR * max(float(g.abs().max()) for g in gw.values())
+    for n, w in gw.items():
+        scale = float(w.abs().max())
+        if scale < floor:
+            assert float(gg[n].abs().max()) < floor, n
+            continue
+        assert float((gg[n] - w).abs().max()) <= 1e-4 * scale, n
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One precoupled Adam (lr 1e-4) + EMA step with ``fused_norm`` True on
+    the card against the same step on the CPU (plain GroupNorm): params and
+    EMA within 1e-5, except elements whose two gradients are rounding noise
+    (Adam's first step is about lr times the gradient's sign, and noise has
+    no sign); Adam's moments within rel 1e-4 of each tensor's max."""
+    sd = _randomized(VelocityUNet(**SMALL_32), 2).state_dict()
+    x0, x1, t = _pairs(4, 32, 3)
+    states = {}
+    for dev in ("cpu", cuda):
+        m = VelocityUNet(**SMALL_32, fused_norm=True)
+        m.load_state_dict(sd)
+        st = fm.new_state(m.to(dev), 1e-4)
+        fm.make_fm_train_step_precoupled(ema_decay=0.999)(
+            st, x0.to(dev), x1.to(dev), t=t.to(dev))
+        states[str(dev)] = st
+    cpu, card = states["cpu"], states[str(cuda)]
+    assert cpu.step == card.step == 1
+    pc = dict(cpu.model.named_parameters())
+    pg = dict(card.model.named_parameters())
+    mus = {n: cpu.optimizer.state[p]["exp_avg"] for n, p in pc.items()}
+    floor = NOISE_FLOOR * 10.0 * max(float(v.abs().max())
+                                     for v in mus.values())
+    for n, p in pc.items():
+        sc, sg = cpu.optimizer.state[p], card.optimizer.state[pg[n]]
+        g_cpu, g_card = sc["exp_avg"] / 0.1, sg["exp_avg"].cpu() / 0.1
+        d = (pg[n].detach().cpu() - p.detach()).abs()
+        for i in torch.nonzero(d > 1e-5):
+            i = tuple(i.tolist())
+            assert max(abs(float(g_cpu[i])), abs(float(g_card[i]))) < floor, (
+                n, i, float(d[i]), float(g_cpu[i]), float(g_card[i]))
+        ema_err = float((card.ema[n].cpu() - cpu.ema[n]).abs().max())
+        assert ema_err <= 1e-5, n
+        if float(sc["exp_avg"].abs().max()) >= 0.1 * floor:
+            for k in ("exp_avg", "exp_avg_sq"):
+                scale = float(sc[k].abs().max())
+                assert float((sg[k].cpu() - sc[k]).abs().max()) <= (
+                    1e-4 * scale), (n, k)

@@ -140,6 +140,70 @@ def test_kernel_weight_cache_follows_load_state_dict():
     assert not torch.equal(w1, w0)
 
 
+def test_kernel_weight_cache_follows_in_place_updates():
+    """An optimizer step updates a weight in place (same storage): the
+    cached HWIO copy must follow it."""
+    m = VelocityUNet(**SMALL)
+    conv = m.down_modules[0]["0a_0a_block"].conv1
+    w0 = conv.kernel_weight(torch.float32).clone()
+    with torch.no_grad():
+        conv.weight.add_(0.25)
+    w1 = conv.kernel_weight(torch.float32)
+    torch.testing.assert_close(w1, conv.weight.detach().permute(2, 3, 1, 0))
+    torch.testing.assert_close(w1, w0 + 0.25)
+    assert conv.kernel_weight(torch.float32) is w1
+    opt = torch.optim.Adam(m.parameters(), lr=0.1)
+    m.begin_conv.weight.grad = torch.ones_like(m.begin_conv.weight)
+    w2 = m.begin_conv.kernel_weight(torch.float32).clone()
+    opt.step()
+    w3 = m.begin_conv.kernel_weight(torch.float32)
+    torch.testing.assert_close(w3, w2 - 0.1, rtol=0, atol=1e-6)
+
+
+def test_conv_mode_runs_a_model_made_under_inference_mode():
+    """Parameters moved under ``torch.inference_mode`` are inference tensors,
+    which have no version counter for the weight cache to read."""
+    x = torch.randn(1, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    t = torch.full((1,), 0.25)
+    plain = VelocityUNet(**SMALL, fused_norm="conv")
+    with torch.inference_mode():
+        want = plain(x, t)
+        m = VelocityUNet(**SMALL, fused_norm="conv").to(torch.float32)
+        m.load_state_dict(plain.state_dict())
+        assert m.begin_conv.weight.is_inference()
+        assert torch.equal(m(x, t), want)
+
+
+def test_conv_mode_refuses_to_record_a_gradient():
+    """``fused_norm "conv"`` has no backward: it raises where a gradient
+    would be recorded, never drops it silently, and still runs without
+    one."""
+    m = VelocityUNet(**SMALL, fused_norm="conv")
+    x = torch.randn(1, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    t = torch.full((1,), 0.5)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        m(x, t)
+    m.requires_grad_(False)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        m(x.requires_grad_(), t)          # an input that wants a gradient
+    m.requires_grad_(True)
+    with torch.no_grad():
+        a = m(x.detach(), t)
+    with torch.inference_mode():
+        b = m(x.detach(), t)
+    assert torch.equal(a, b) and torch.isfinite(a).all()
+    # the differentiable modes train every conv
+    for mode in (False, True, "bm"):
+        mm = VelocityUNet(**SMALL, fused_norm=mode)
+        mm(x.detach(), t).square().sum().backward()
+        assert mm.begin_conv.weight.grad is not None, mode
+        assert block_grad(mm) is not None, mode
+
+
+def block_grad(m):
+    return m.down_modules[0]["0a_0a_block"].conv1.weight.grad
+
+
 @pytest.mark.parametrize("mode", ["dot", "bf16stats", "tview"])
 def test_unported_norm_modes_raise(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
