@@ -23,29 +23,43 @@ failure (nothing is caught and passed over) and prints its seconds:
    through its autograd function, with the launch plans the train step
    takes; the conv, GroupNorm and FIR kernels must also repeat bit for
    bit, and each FIR site must take the tiled path (the narrow one at
-   C = 3);
+   C = 3); then under autodiff at the differentiated methods' batch of 4:
+   upfirdn2d's backward (the kernel in the adjoint geometry) at every
+   NCSN++ site, on the path predicted and bit for bit, and
+   groupnorm_swish's JVP at every 64x64 site;
 5. model parity: the random flagship U-Net with ``fused_norm`` True, "bm"
    and "conv" against False, and the random NCSN++ 256^2 on the card
    against the same weights on the CPU; then training: the flagship at
    128x128 and the training batch of 128, its flow-matching loss and every
    parameter's gradient with ``fused_norm`` True against False (summed over
-   slices of 32 images);
+   slices of 32 images); then autodiff: the flagship's VJP and JVP at
+   64x64 and 4 images, True against False, and the NCSN++ 256^2's VJP on
+   the card against the CPU;
 6. main path: the port's CLI, pnp_flow on synthetic images -- the U-Net at
    64x64 (FFT deblur; "conv" fp32 at 100 steps, "conv" bf16, True and "bm"
-   at 10) and the rectified NCSN++ at 256x256 (FFT deblur fp32 at 100 steps,
-   bf16 at 10, super-resolution at 10) -- then ``train True eval True``:
+   at 10) and the rectified NCSN++ at 256x256 (FFT deblur fp32 at 30 steps,
+   cut from 100 to keep the script near 10 minutes, bf16 at 10,
+   super-resolution at 10) -- then ``train True eval True``:
    the flagship ``ot`` U-Net trained at 128x128, batch 128, exact OT, fp32,
    for 6 steps, and restored from the checkpoint it wrote (FFT deblur, 10
-   steps); every launch counter set to 0 before each run and read after;
+   steps); then the differentiated methods, fp32, FFT deblur, 4 images:
+   the U-Net at 64x64 with ot_ode at its default (80 VJP steps),
+   flow_priors at its default (N 100, K 1), d_flow with max_iter cut from
+   20 to 1 (20 LBFGS iterations; the default takes about 20 times as long)
+   and ot_ode on bicubic super-resolution (GMRES, 10 steps), and the
+   NCSN++ 256^2 with ot_ode at 5 steps (4 VJPs) and flow_priors at N 2;
+   every launch counter set to 0 before each run and read after;
 7. timing: CUDA-event times of each kernel, its plain version and the
    PyTorch library call, per forward at the bench shapes (U-Net: 64x64, 64
    images x 5 Monte-Carlo samples, and for conv3x3_gn and both GroupNorm
    entries also the main-path 20; NCSN++: 256x256, 4 x 5, upfirdn2d also
-   by site), the forwards per mode (median of 5), PnP steps and the peak
-   memory of a rectified step;
+   by site, and its adjoint per NCSN++ VJP at 4 images), the forwards per
+   mode (median of 5), PnP steps and the peak memory of a rectified step;
+   each CLI run's seconds per iteration and peak memory;
 8. profiles, last, since the profiler leaves later launches slower on the
    host: the GroupNorm kernels' device time per forward, the upfirdn2d
-   kernels' per NCSN++ forward and by site, torch.profiler kernel
+   kernels' per NCSN++ forward and by site and their adjoint launches' per
+   NCSN++ VJP at 4 images, torch.profiler kernel
    breakdowns of one U-Net forward with ``fused_norm`` True per dtype and
    of one float32 NCSN++ forward, and one train step of the 128x128
    flagship at batch 128, split into forward, backward, Adam and EMA.
@@ -80,6 +94,8 @@ RECT_DIM = 256          # the NCSN++ 256^2 (CelebA-HQ / AFHQ-Cat) defaults
 RECT_FIR_SITES = 36     # upfirdn2d calls per NCSN++ 256^2 forward
 RECT_FIR_NARROW = 12    # of which C = 3 (the image pyramids)
 CLI_STEPS = 100         # main-path PnP steps: the CLI default
+RECT_CLI_STEPS = 30     # the rectified fp32 run, cut from 100 (about 140 s
+                        # on an H100) to keep the script near 10 minutes
 MAIN_BATCH = 4 * 5      # batch_size_ip x num_samples: images per forward
 BENCH_BATCH = 64 * 5    # the bench protocol: 64 images x 5 MC samples
 NCSNPP_REL_TOL = 1e-4   # NCSN++ card vs CPU, relative to max|out|, fp32
@@ -96,6 +112,14 @@ TRAIN_PARITY_CHUNK = 32  # images per plain-GroupNorm slice in training parity
 CONV_SITES = 109        # conv3x3_gn launches per flagship forward
 PLOT_FORWARDS = 10      # the Euler sample plot at epoch 0, with matplotlib
 NOISE_FLOOR = 1e-6      # of the largest gradient: float32 rounding noise
+GN_SITES_64 = 136       # groupnorm_swish launches per 64x64 flagship forward
+DIFF_BATCH = 4          # batch_size_ip of ot_ode / flow_priors / d_flow
+OT_ODE_STEPS = 100      # steps_ode, the default: from start_time 0.2, 80 steps
+FP_N = 100              # flow_priors N, the default (K 1)
+D_FLOW_MAX_ITER = 1     # of the default 20 LBFGS steps (20 iterations each)
+BICUBIC_STEPS = 10      # ot_ode steps_ode for bicubic SR (GMRES): 8 steps
+RECT_OT_STEPS = 5       # ot_ode on the NCSN++ 256^2: 4 VJP steps
+RECT_FP_N = 2           # flow_priors on the NCSN++ 256^2: 2 outer steps
 
 
 def fail(msg):
@@ -136,10 +160,17 @@ def reset_counts():
         fn.launches = 0
     fir = launch_counters()["upfirdn2d"]
     fir.paths = dict.fromkeys(fir.paths, 0)
+    fir.roles = dict.fromkeys(fir.roles, 0)
 
 
 def fir_paths():
     return dict(launch_counters()["upfirdn2d"].paths)
+
+
+def fir_roles():
+    """upfirdn2d launches by role: "forward", "adjoint" (the backward) and
+    "tangent" (forward mode)."""
+    return dict(launch_counters()["upfirdn2d"].roles)
 
 
 def read_counts():
@@ -243,6 +274,7 @@ def fir_sites(torch, dev):
     # the wrapper counts through its module-level name, which is `record`
     # while it is patched in
     record.launches, record.paths = 0, dict.fromkeys(upfirdn_mod.PATHS, 0)
+    record.roles = dict.fromkeys(upfirdn_mod.ROLES, 0)
     m = NCSNpp(image_size=RECT_DIM).to(dev).eval()
     upfirdn_mod.upfirdn2d = record
     try:
@@ -453,6 +485,93 @@ def train_gn_parity(torch, dev, sites):
     return plans
 
 
+def autodiff_kernel_parity(torch, dev, firs, gn_sites):
+    """The kernels under autodiff at the differentiated methods' batch:
+    upfirdn2d's backward at every NCSN++ 256^2 site, in float32 and bf16 --
+    the kernel launched in the adjoint geometry, against autograd through
+    the plain version on the card, on the path predicted (tiled; narrow at
+    C = 3), bit for bit on a repeat -- and groupnorm_swish's JVP at every
+    64x64 site: the primal the kernel's forward, bit for bit, the tangent
+    the plain forward-mode rule against forward AD through the plain
+    version.  Bounds: FIR fp32 1e-5, bf16 2e-2, each times max(1, max|dx|)
+    (the up sites' adjoint sums 16 taps of up to 0.56 into gradients near
+    5); GroupNorm tangent fp32 1e-4, bf16 5e-2 of max|tangent|."""
+    from pnpflow_tpu_torch.ops.gn_swish import (
+        gn_swish_reference, groupnorm_swish, groupnorm_swish_fwd)
+    from pnpflow_tpu_torch.ops.upfirdn import (
+        adjoint_geometry, upfirdn2d, upfirdn2d_reference)
+
+    n, err, paths = DIFF_BATCH, {}, Counter()
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        dt = str(dtype)[6:]
+        for i, site in enumerate(sorted(set(firs))):
+            x, k, kw = fir_inputs(torch, dev, n, site, dtype, 500 + i)
+            g = torch.Generator(device=dev).manual_seed(600 + i)
+            y = upfirdn2d_reference(x, k, **kw)
+            dy = torch.randn(y.shape, generator=g, device=dev).to(dtype)
+            where = f"upfirdn2d adjoint {dt} at {site[:7]}"
+            grads = []
+            reset_counts()
+            for fn in (upfirdn2d, upfirdn2d_reference):
+                xr = x.clone().requires_grad_()
+                grads.append(torch.autograd.grad(fn(xr, k, **kw), xr, dy)[0])
+            torch.cuda.synchronize()
+            got, want = grads
+            path = "narrow" if site[2] == 3 else "tiled"
+            check(fir_roles() == {"forward": 1, "adjoint": 1, "tangent": 0}
+                  and fir_paths()[path] == 2,
+                  f"{where}: roles {fir_roles()}, paths {fir_paths()}")
+            paths[path] += 1
+            taps, up, down, pad, crop = adjoint_geometry(
+                site[0], site[1], k, kw["up"], kw["down"], kw["pad"])
+            check(crop is None and torch.equal(
+                got, upfirdn2d(dy, taps, up, down, pad)),
+                f"{where}: not bit-for-bit")
+            d = float((got.float() - want.float()).abs().max())
+            scale = max(1.0, float(want.float().abs().max()))
+            check(got.dtype == dtype and d <= tol * scale,
+                  f"{where}: err {d} (max|dx| {scale})")
+            err[f"upfirdn2d_adjoint/{dt}"] = max(
+                err.get(f"upfirdn2d_adjoint/{dt}", 0.0), d / scale)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        dt = str(dtype)[6:]
+        for i, (h, c, swish) in enumerate(sorted(set(gn_sites))):
+            x, s, b = gn_inputs(torch, dev, n, h, c, dtype, 700 + i)
+            dx = torch.randn(x.shape, generator=torch.Generator(
+                device=dev).manual_seed(800 + i), device=dev).to(dtype)
+            where = f"groupnorm_swish jvp {dt} at {(n, h, c, swish)}"
+            reset_counts()
+            y, got = torch.func.jvp(
+                lambda z: groupnorm_swish(z, s, b, 32, 1e-6, swish), (x,),
+                (dx,))
+            torch.cuda.synchronize()
+            check(read_counts() == only(groupnorm_swish=1),
+                  f"{where}: launches {read_counts()}")
+            check(torch.equal(y, groupnorm_swish_fwd(x, s, b, 32, 1e-6,
+                                                     swish)),
+                  f"{where}: the primal is not the kernel's forward")
+            _, want = torch.func.jvp(
+                lambda z: gn_swish_reference(z, s, b, 32, 1e-6, swish),
+                (x,), (dx,))
+            scale = float(want.float().abs().max())
+            d = float((got.float() - want.float()).abs().max())
+            check(got.dtype == dtype and d <= tol * scale,
+                  f"{where}: err {d} (max {scale})")
+            err[f"groupnorm_swish_jvp/{dt}"] = max(
+                err.get(f"groupnorm_swish_jvp/{dt}", 0.0), d / scale)
+    emit({"kernel_parity": "autodiff", "batch": n,
+          "fir_adjoint_sites": len(set(firs)),
+          "fir_adjoint_paths_per_dtype": {k: v // 2 for k, v in
+                                          paths.items()},
+          "gn_jvp_sites": len(set(gn_sites)),
+          "max_err_of_scale": err,
+          "tolerances": {"fir_adjoint": {"float32": 1e-5, "bfloat16": 2e-2,
+                                         "of": "max(1, max|dx|)"},
+                         "gn_jvp": {"float32": 1e-4, "bfloat16": 5e-2,
+                                    "of": "max|tangent|"}}})
+    return err
+
+
 # --------------------------------------------------------- 5. model parity
 def randomized_unet(torch, dev, fused, seed=0, **over):
     """Flagship U-Net with every parameter random (no near-zero convs)."""
@@ -634,8 +753,88 @@ def training_parity(torch, dev):
           f"training parity launches {lw} / {lg}")
 
 
+def autodiff_model_parity(torch, dev, rect_state):
+    """The flagship U-Net at 64x64 and the differentiated methods' batch,
+    ``fused_norm`` True against False on the same weights: a VJP
+    (``torch.autograd.grad``) and a JVP (``torch.func.jvp``), each within
+    1e-4 of its max, the forward's bound, with 136 kernel launches in each
+    True forward; then the NCSN++ 256^2's VJP on the card (upfirdn2d
+    forward and adjoint) against the CPU (plain), batch 1, within
+    NCSNPP_REL_TOL of max|dx|."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x, w = (torch.randn(DIFF_BATCH, 64, 64, 3, generator=g, device=dev)
+            for _ in range(2))
+    t = torch.rand(DIFF_BATCH, generator=g, device=dev)
+    out = {}
+    for fused in (False, True):
+        m = randomized_unet(torch, dev, fused).requires_grad_(False)
+        reset_counts()
+        xr = x.clone().requires_grad_()
+        (vjp,) = torch.autograd.grad(m(xr, t), xr, w)
+        _, jvp = torch.func.jvp(lambda z: m(z, t), (x,), (w,))
+        torch.cuda.synchronize()
+        out[fused] = (vjp, jvp, read_counts())
+        del m
+    res = {}
+    for i, name in enumerate(("vjp", "jvp")):
+        want, got = out[False][i], out[True][i]
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        res[name] = rel
+        check(torch.isfinite(got).all().item() and rel <= 1e-4,
+              f"U-Net {name} True vs False: rel err {rel}")
+    check(out[False][2] == only()
+          and out[True][2] == only(groupnorm_swish=2 * GN_SITES_64),
+          f"U-Net autodiff launches {out[False][2]} / {out[True][2]}")
+    emit({"model_parity": "unet_autodiff", "batch": DIFF_BATCH,
+          "rel_err": res, "launches": out[True][2], "rel_tol": 1e-4})
+
+    xg = torch.Generator().manual_seed(12)
+    x = torch.randn(1, RECT_DIM, RECT_DIM, 3, generator=xg)
+    dy = torch.randn(x.shape, generator=xg)
+    t = torch.tensor([0.43 * 999.0])
+    grads = {}
+    for d in ("cpu", dev):
+        m = ncsnpp(torch, d, rect_state).requires_grad_(False)
+        reset_counts()
+        xr = x.to(d).requires_grad_()
+        (grads[str(d)],) = torch.autograd.grad(m(xr, t.to(d)), xr, dy.to(d))
+        if d == dev:
+            torch.cuda.synchronize()
+            launches, roles = read_counts(), fir_roles()
+        del m
+    want, got = grads["cpu"], grads[str(dev)].cpu()
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    emit({"model_parity": "ncsnpp_256_vjp", "batch": 1, "max_abs_dx": scale,
+          "rel_err": rel, "rel_tol": NCSNPP_REL_TOL, "launches": launches,
+          "fir_roles": roles})
+    check(torch.isfinite(got).all().item() and scale > 1e-3,
+          f"NCSN++ VJP not finite or vanishing (max {scale})")
+    check(rel <= NCSNPP_REL_TOL, f"NCSN++ VJP card vs CPU: rel err {rel}")
+    check(launches == only(upfirdn2d=2 * RECT_FIR_SITES)
+          and roles == {"forward": RECT_FIR_SITES,
+                        "adjoint": RECT_FIR_SITES, "tangent": 0},
+          f"NCSN++ VJP launches {launches}, roles {roles}")
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ 6. main path
-def cli_run(torch, extra, steps, rect_ckpt=None):
+def method_keys(method):
+    """The keys of ``config/method_config/{method}.yaml``: the header of
+    ``final_psnr.txt`` after psnr_rec and psnr_noisy."""
+    from pnpflow_tpu_torch.utils.config import load_cfg_from_cfg_file
+
+    return list(load_cfg_from_cfg_file(os.path.join(
+        HERE, "config", "method_config", f"{method}.yaml")))
+
+
+def cli_run(torch, extra, steps, rect_ckpt=None, method="pnp_flow"):
+    """One CLI run on synthetic images, FFT deblurring unless ``extra``
+    says otherwise, batch 4 (pnp_flow: x 5 MC samples, ``steps`` PnP
+    steps); checks the reference file set and a finite PSNR and returns the
+    launches, the time per batch and the peak memory it wrote."""
+    import ast
+
     from pnpflow_tpu_torch.main import main
 
     with tempfile.TemporaryDirectory() as out:
@@ -644,46 +843,48 @@ def cli_run(torch, extra, steps, rect_ckpt=None):
             os.makedirs(ck)
             os.symlink(rect_ckpt, os.path.join(ck, "model_final.pt"))
         opts = ["dataset", "synthetic", "model", "ot", "eval", "True",
-                "method", "pnp_flow", "problem", "gaussian_deblurring_FFT",
-                "num_samples", "5", "batch_size_ip", "4", "max_batch", "1",
+                "method", method, "problem", "gaussian_deblurring_FFT",
+                "batch_size_ip", "4", "max_batch", "1",
                 "save_results", "True", "compute_time", "True",
-                "compute_memory", "True", "steps_pnp", str(steps),
-                "output_root", out] + extra
+                "compute_memory", "True", "output_root", out]
+        if method == "pnp_flow":
+            opts += ["num_samples", "5", "steps_pnp", str(steps)]
         reset_counts()
         t0 = time.perf_counter()
-        args = main(["--opts"] + opts)
+        args = main(["--opts"] + opts + extra)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = read_counts()
-        paths = fir_paths()
+        launches, paths, roles = read_counts(), fir_paths(), fir_roles()
         ip = args.save_path_ip
         for f in ("psnr_rec_batch0.txt", "psnr_noisy_batch0.txt",
                   "ssim_rec_batch0.txt", "psnr_rec_average.txt",
                   "ssim_rec_average.txt", "time_stats.txt",
                   "time_average.txt", "memory_stats.txt",
-                  "max_memory_average.txt"):
+                  "max_memory_average.txt",
+                  f"{args.problem}_{method}_batch0_final.png"):
             check(os.path.exists(os.path.join(ip, f)), f"missing {f}")
         with open(os.path.join(args.save_path, "final_psnr.txt")) as f:
             header, row = f.readline().split(), f.readline().split()
-        check(header == ["psnr_rec", "psnr_noisy", "steps_pnp", "lr_pnp",
-                         "gamma_style", "num_samples", "alpha"],
+        check(header == ["psnr_rec", "psnr_noisy"] + method_keys(method),
               f"final_psnr.txt header {header}")
         psnr = float(row[0])
         check(psnr == psnr and abs(psnr) != float("inf"),
               f"PSNR not finite: {psnr}")
         with open(os.path.join(ip, "time_stats.txt")) as f:
-            tstat = f.readline().strip()
+            tstat = ast.literal_eval(f.readline().strip())
         with open(os.path.join(ip, "memory_stats.txt")) as f:
-            mstat = f.readline().strip()
-    return {"opts": extra, "steps": steps, "seconds": seconds,
-            "final_psnr_rec": psnr, "final_psnr_noisy": float(row[1]),
-            "launches": launches, "fir_paths": paths, "time_stats": tstat,
-            "memory_stats": mstat}
+            mstat = ast.literal_eval(f.readline().strip())
+    return {"method": method, "opts": extra, "steps": steps,
+            "seconds": seconds, "final_psnr_rec": psnr,
+            "final_psnr_noisy": float(row[1]), "launches": launches,
+            "fir_paths": paths, "fir_roles": roles,
+            "time_per_batch": tstat["time_per_batch"],
+            "max_memory_allocated": mstat["max_allocated"]}
 
 
 def main_path(torch, rect_ckpt):
     """Every run is read right after it; returns each kernel's launches on
-    the run that drives it."""
+    the run that drives it, and every run's result."""
     rect = ["model", "rectified", "dim_image", str(RECT_DIM)]
     unet_runs = (
         ("conv_fp32", [], CLI_STEPS, only(conv3x3_gn=109 * CLI_STEPS)),
@@ -694,8 +895,8 @@ def main_path(torch, rect_ckpt):
          only(groupnorm_swish_bm=136 * 10)),
     )
     rect_runs = (
-        ("rect_fp32", rect, CLI_STEPS,
-         only(upfirdn2d=RECT_FIR_SITES * CLI_STEPS)),
+        ("rect_fp32", rect, RECT_CLI_STEPS,
+         only(upfirdn2d=RECT_FIR_SITES * RECT_CLI_STEPS)),
         ("rect_bf16", rect + ["bf16", "True"], 10,
          only(upfirdn2d=RECT_FIR_SITES * 10)),
         ("rect_sr_fp32", rect + ["problem", "superresolution"], 10,
@@ -718,7 +919,79 @@ def main_path(torch, rect_ckpt):
             "groupnorm_swish": runs["gn_fp32"]["launches"]["groupnorm_swish"],
             "groupnorm_swish_bm":
                 runs["bm_fp32"]["launches"]["groupnorm_swish_bm"],
-            "upfirdn2d": runs["rect_fp32"]["launches"]["upfirdn2d"]}
+            "upfirdn2d": runs["rect_fp32"]["launches"]["upfirdn2d"]}, runs
+
+
+def differentiated_path(torch, rect_ckpt):
+    """ot_ode, flow_priors and d_flow through the CLI, fp32, FFT deblurring,
+    4 images: the flagship U-Net at 64x64 (``fused_norm`` True, these
+    methods' default) with ot_ode at its default (100 steps from
+    start_time 0.2: 80 VJP steps), flow_priors at its default (N 100, K 1),
+    d_flow with max_iter cut from 20 to D_FLOW_MAX_ITER (each of its 20
+    LBFGS iterations takes 10 forwards, 10 recomputed, and a backward), and
+    ot_ode on bicubic super-resolution (GMRES) at 10 steps; then the
+    NCSN++ 256^2 with ot_ode at RECT_OT_STEPS steps and flow_priors at
+    N = RECT_FP_N.  Launches: groupnorm_swish once per site in every
+    forward (its tangent and cotangent are plain), upfirdn2d forward once
+    per site in every forward, adjoint once per site whose input a
+    backward must reach, tangent once per site in every JVP (the CPU test
+    ``test_fir_launch_roles_of_the_differentiated_solvers`` counts the
+    same).  Returns each run's result."""
+    rect = ["model", "rectified", "dim_image", str(RECT_DIM)]
+    gn, fir, pyr = GN_SITES_64, RECT_FIR_SITES, RECT_FIR_NARROW // 2
+    ot_iters = OT_ODE_STEPS - int(OT_ODE_STEPS * 0.2)
+    sr_iters = BICUBIC_STEPS - int(BICUBIC_STEPS * 0.2)
+    rect_ot = RECT_OT_STEPS - int(RECT_OT_STEPS * 0.2)
+    # name, method, options, iterations, launches (None: data-dependent,
+    # checked below), FIR roles
+    runs = (
+        ("ot_ode_fp32", "ot_ode", [], ot_iters,
+         only(groupnorm_swish=gn * ot_iters), None),
+        ("flow_priors_fp32", "flow_priors", [], FP_N,
+         only(groupnorm_swish=2 * gn * FP_N), None),
+        ("d_flow_fp32", "d_flow", ["max_iter", str(D_FLOW_MAX_ITER)],
+         D_FLOW_MAX_ITER, None, None),
+        ("ot_ode_sr_bicubic_fp32", "ot_ode",
+         ["problem", "superresolution_bicubic", "steps_ode",
+          str(BICUBIC_STEPS)], sr_iters, only(groupnorm_swish=gn * sr_iters),
+         None),
+        ("rect_ot_ode_fp32", "ot_ode", rect + ["steps_ode",
+                                               str(RECT_OT_STEPS)], rect_ot,
+         only(upfirdn2d=2 * fir * rect_ot),
+         {"forward": fir * rect_ot, "adjoint": fir * rect_ot, "tangent": 0}),
+        # per outer step: the JVP's primal and the advance (forward), the
+        # JVP's tangent, and the backward through both the primal and the
+        # tangent (adjoint), but for the tangent of the input pyramid's six
+        # C = 3 down sites, which does not depend on x
+        ("rect_flow_priors_fp32", "flow_priors", rect + ["N", str(RECT_FP_N)],
+         RECT_FP_N, only(upfirdn2d=(5 * fir - pyr) * RECT_FP_N),
+         {"forward": 2 * fir * RECT_FP_N,
+          "adjoint": (2 * fir - pyr) * RECT_FP_N,
+          "tangent": fir * RECT_FP_N}),
+    )
+    out = {}
+    for name, method, extra, iters, expect, roles in runs:
+        torch.cuda.empty_cache()
+        with phase(f"main_path/{name}"):
+            r = cli_run(torch, extra, iters,
+                        rect_ckpt if extra[:2] == rect[:2] else None, method)
+        got = r["launches"]
+        if expect is None:
+            check(got["groupnorm_swish"] > 0
+                  and got["groupnorm_swish"] % gn == 0
+                  and got == only(groupnorm_swish=got["groupnorm_swish"]),
+                  f"{name}: launches {got}")
+        else:
+            check(got == expect, f"{name}: launches {got}, expected {expect}")
+        if roles is not None:
+            check(r["fir_roles"] == roles,
+                  f"{name}: upfirdn2d roles {r['fir_roles']}, expected "
+                  f"{roles}")
+        r["seconds_per_iteration"] = r["time_per_batch"] / iters
+        r["iterations"] = iters
+        emit({"main_path": name, **r})
+        out[name] = r
+    return out
 
 
 def train_run(torch, batch):
@@ -969,6 +1242,23 @@ def fir_site_key(site):
     return f"{h}x{w}x{c} {'up' if up > 1 else 'down'}"
 
 
+def adjoint_site(site):
+    """The upfirdn2d site that computes the gradient of ``site``'s input:
+    its output's shape in, the adjoint geometry."""
+    import numpy as np
+    from pnpflow_tpu_torch.ops.upfirdn import adjoint_geometry
+
+    h, w, c, up, down, p0, p1, taps = site
+    kk = len(taps)
+    oh = (h * up + p0 + p1 - kk) // down + 1
+    ow = (w * up + p0 + p1 - kk) // down + 1
+    k, up_a, down_a, (q0, q1), crop = adjoint_geometry(
+        h, w, np.asarray(taps, np.float32), up, down, (p0, p1))
+    check(crop is None, f"adjoint of {site[:7]} needs a crop")
+    return (oh, ow, c, up_a, down_a, q0, q1,
+            tuple(tuple(float(v) for v in row) for row in k))
+
+
 def fir_bounds_ms(site, n, item):
     """(bytes, operations) bound of one launch at n images: one read of x
     and one write of y; 2 flops for each tap on a non-zero input."""
@@ -981,13 +1271,13 @@ def fir_bounds_ms(site, n, item):
             1e3 * 2 * (kk // up) ** 2 * out / PEAK["float32"])
 
 
-def time_fir(torch, dev, firs, dtype):
-    """Per NCSN++ forward at the main-path batch, and by site: launches per
-    forward, then the kernel's, the bound's and the library call's ms for
-    all of that site's launches."""
+def time_fir(torch, dev, firs, dtype, n=MAIN_BATCH):
+    """Per NCSN++ forward (or, given the adjoint sites, per VJP) at n
+    images, and by site: launches, then the kernel's, the bound's and the
+    library call's ms for all of that site's launches."""
     from pnpflow_tpu_torch.ops.upfirdn import upfirdn2d, upfirdn2d_reference
 
-    n, item = MAIN_BATCH, torch.finfo(dtype).bits // 8
+    item = torch.finfo(dtype).bits // 8
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
            "ops_ms": 0.0, "by_site": {}}
     for site, cnt in Counter(firs).items():
@@ -1012,7 +1302,11 @@ def time_fir(torch, dev, firs, dtype):
     return tot
 
 
-def kernel_rows(torch, dev, sites, launches, err):
+def kernel_rows(torch, dev, sites, launches, err, runs):
+    """One row per kernel; ``launches`` counts the main-path run that drives
+    it, ``launches_by_run`` every run of the script's main paths that
+    launched it (and, for upfirdn2d, ``roles_by_run``: forward, adjoint and
+    tangent launches)."""
     kernels = []
     for name, fn, key, route, src, repl, batch in (
         ("conv3x3_gn", time_conv, "conv", "cuda",
@@ -1042,7 +1336,35 @@ def kernel_rows(torch, dev, sites, launches, err):
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
             else "operations",
             "library_ms": t["library_ms"],
+            "launches_by_run": {r: v["launches"][name]
+                                for r, v in runs.items()
+                                if v["launches"][name]},
         })
+        if name == "upfirdn2d":
+            kernels[-1]["roles_by_run"] = {
+                r: v["fir_roles"] for r, v in runs.items()
+                if v.get("fir_roles") and v["launches"][name]}
+            # its backward: the same kernel at each site's adjoint geometry,
+            # per NCSN++ VJP at the differentiated methods' batch
+            adj_sites = [adjoint_site(site) for site in sites[key]]
+            with phase("timing/upfirdn2d_adjoint"):
+                adj = {}
+                for dtype in (torch.float32, torch.bfloat16):
+                    with torch.inference_mode():
+                        adj[str(dtype)[6:]] = time_fir(
+                            torch, dev, adj_sites, dtype, n=DIFF_BATCH)
+            a = adj["float32"]
+            kernels[-1]["adjoint"] = {
+                "batch": DIFF_BATCH,
+                "launches": sum(v["fir_roles"]["adjoint"]
+                                for v in runs.values()
+                                if v.get("fir_roles")),
+                "ms": a["ms"], "plain_ms": a["plain_ms"],
+                "bound_ms": max(a["bytes_ms"], a["ops_ms"]),
+                "library_ms": a["library_ms"]}
+            emit({"kernel_timing": "upfirdn2d_adjoint", "per_vjp": True,
+                  "launches_per_vjp": len(adj_sites), "batch": DIFF_BATCH,
+                  **adj})
         emit({"kernel_timing": name, "per_forward": True,
               "launches_per_forward": len(sites[key]), "batch": batch,
               **{dt: {k: v for k, v in d.items()} for dt, d in per.items()}})
@@ -1361,22 +1683,35 @@ def profiles(torch, dev, gn_sites, firs, rect_state, train_batch):
                 x, taps, kw = fir_inputs(torch, dev, MAIN_BATCH, site, dtype,
                                          0)
                 calls.append(functools.partial(upfirdn2d, x, taps, **kw))
-                rows.append(("fir", dt, k, site))
+                rows.append(("fir", dt, k, site, MAIN_BATCH))
+                # the same site's backward in an NCSN++ VJP at the
+                # differentiated methods' batch: the kernel on dy in the
+                # adjoint geometry
+                adj = adjoint_site(site)
+                dy, taps_a, kw_a = fir_inputs(torch, dev, DIFF_BATCH, adj,
+                                              dtype, 1)
+                calls.append(functools.partial(upfirdn2d, dy, taps_a, **kw_a))
+                rows.append(("fir_adjoint", dt, k, adj, DIFF_BATCH))
         each = device_ms_each(torch, calls, GN_KERNEL_NAMES + ("upfirdn2d",))
-    gn, fir = {}, {}
-    for (kind, key, k, site), ms in zip(rows, each):
+    gn, fir = {}, {"fir": {}, "fir_adjoint": {}}
+    for (kind, key, k, site, *n), ms in zip(rows, each):
         if kind == "gn":
             gn[key] = gn.get(key, 0.0) + k * ms
             continue
-        res = fir.setdefault(key, {"ms": 0.0, "bound_ms": 0.0, "by_site": {}})
+        res = fir[kind].setdefault(key, {"ms": 0.0, "bound_ms": 0.0,
+                                         "by_site": {}})
         item = 4 if key == "float32" else 2
-        bound = k * max(fir_bounds_ms(site, MAIN_BATCH, item))
+        bound = k * max(fir_bounds_ms(site, n[0], item))
         res["by_site"][fir_site_key(site)] = [k, k * ms, bound]
         res["ms"] += k * ms
         res["bound_ms"] += bound
     emit({"gn_device_ms_per_forward": gn})
-    emit({"fir_device_ms_per_forward": fir, "batch": MAIN_BATCH,
+    emit({"fir_device_ms_per_forward": fir["fir"], "batch": MAIN_BATCH,
           "by_site": "[launches per forward, device ms, bound ms]"})
+    emit({"fir_adjoint_device_ms_per_vjp": fir["fir_adjoint"],
+          "batch": DIFF_BATCH,
+          "by_site": "[launches per VJP, device ms, bound ms] keyed by the "
+                     "adjoint launch's own input and kind"})
 
     g = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn(BENCH_BATCH, 64, 64, 3, generator=g, device=dev)
@@ -1394,6 +1729,7 @@ def profiles(torch, dev, gn_sites, firs, rect_state, train_batch):
     del x, t
     torch.cuda.empty_cache()
     profile_train_step(torch, dev, train_batch)
+    return fir["fir_adjoint"]["float32"]
 
 
 def main():
@@ -1422,27 +1758,37 @@ def main():
     with phase("kernel_parity"):
         err = kernel_parity(torch, dev, gn_sites, conv_sites, firs,
                             train_sites)
+    with phase("kernel_parity/autodiff"):
+        autodiff_kernel_parity(torch, dev, firs, gn_sites)
     with phase("model_parity"):
         model_parity(torch, dev, rect_state)
     with phase("model_parity/training"):
         training_parity(torch, dev)
+    with phase("model_parity/autodiff"):
+        autodiff_model_parity(torch, dev, rect_state)
     with tempfile.TemporaryDirectory() as tmp:
         rect_ckpt = os.path.join(tmp, "rectified.pt")
         # a RectifiedFlow-layout checkpoint: {model, ema, optimizer, step}
         torch.save({"model": {"module." + k: v for k, v in rect_state.items()},
                     "ema": None, "optimizer": {}, "step": 0}, rect_ckpt)
-        launches = main_path(torch, rect_ckpt)
-    train = train_path(torch)
+        launches, runs = main_path(torch, rect_ckpt)
+        train = train_path(torch)
+        runs["train_fp32"] = train
+        runs.update(differentiated_path(torch, rect_ckpt))
     launches["groupnorm_swish"] += train["launches"]["groupnorm_swish"]
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
-    kernels = kernel_rows(torch, dev, sites, launches, err)
+    kernels = kernel_rows(torch, dev, sites, launches, err, runs)
     with phase("timing/unet"):
         time_unet(torch, dev)
     with phase("timing/rectified"):
         time_rectified(torch, dev, rect_state)
     with phase("profiles"):
-        profiles(torch, dev, gn_sites, firs, rect_state, train["batch"])
+        adjoint = profiles(torch, dev, gn_sites, firs, rect_state,
+                           train["batch"])
+    fir_row = next(k for k in kernels if k["name"] == "upfirdn2d")
+    fir_row["adjoint_device_ms_per_vjp"] = adjoint["ms"]
+    fir_row["adjoint_bound_ms"] = adjoint["bound_ms"]
     emit({"kernels": kernels})
     emit({"seconds": time.perf_counter() - t_all})
     print(card, flush=True)

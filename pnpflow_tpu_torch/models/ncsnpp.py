@@ -48,9 +48,12 @@ def _group_norm(ch: int) -> nn.GroupNorm:
 
 def _gn(x, norm: nn.GroupNorm):
     """GroupNorm on NHWC with float32 statistics, output NHWC-contiguous in
-    x's dtype (the FIR kernel reads it as it lies)."""
-    y = F.group_norm(x.float().permute(0, 3, 1, 2), norm.num_groups,
-                     norm.weight, norm.bias, norm.eps)
+    x's dtype (the FIR kernel reads it as it lies).  The input goes in as a
+    contiguous NCHW copy, as the CUDA group_norm makes it anyway: under a
+    JVP inside ``torch.func.grad`` group_norm's decomposition views its
+    input, which a channels-last view refuses."""
+    y = F.group_norm(x.float().permute(0, 3, 1, 2).contiguous(),
+                     norm.num_groups, norm.weight, norm.bias, norm.eps)
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 

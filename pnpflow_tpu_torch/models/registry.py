@@ -13,10 +13,12 @@ restoration it defaults to ``"conv"`` here (the JAX package defaults to
 ``False``): ``False`` runs no kernel of this repository on the card, while
 ``"conv"`` sends every ResidualBlock through the fused ``conv3x3_gn``
 kernel.  ``"conv"`` is forward-only, so a model built for training
-(``define_model(args, train=True)``) defaults to ``True``, the
-``groupnorm_swish`` kernel with its autograd backward, and refuses
-``"conv"``.  A ``train True eval True`` run without ``fused_norm`` therefore
-trains with ``True`` and restores with ``"conv"``.
+(``define_model(args, train=True)``) or for a method that differentiates
+through the model (``ot_ode``, ``flow_priors``, ``d_flow``) defaults to
+``True``, the ``groupnorm_swish`` kernel with its autograd backward and
+forward-mode rule, and refuses ``"conv"``.  A ``train True eval True``
+pnp_flow run without ``fused_norm`` therefore trains with ``True`` and
+restores with ``"conv"``.
 
 The msgpack reader and writer speak flax's format with the ``msgpack``
 module alone: arrays are ext type 1 and numpy scalars ext type 3, each
@@ -46,11 +48,14 @@ ARCH_KEY = "__pnpflow_arch__"
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 MAX_LEAF_BYTES = 2 ** 30    # flax chunks larger arrays; the port does not
+# the solvers that differentiate through the velocity model
+DIFFERENTIATED_METHODS = ("ot_ode", "flow_priors", "d_flow")
 
 
 def define_model(args, dtype=torch.float32, train: bool = False) -> nn.Module:
-    """The model of ``args.model``.  ``train`` selects the U-Net's training
-    default, ``fused_norm True``, and refuses the forward-only ``"conv"``."""
+    """The model of ``args.model``.  ``train``, or a restoration ``method``
+    of :data:`DIFFERENTIATED_METHODS`, selects the U-Net's default
+    ``fused_norm True`` and refuses the forward-only ``"conv"``."""
     if args.model == "rectified":
         if train:
             raise NotImplementedError(
@@ -65,11 +70,18 @@ def define_model(args, dtype=torch.float32, train: bool = False) -> nn.Module:
     else:
         # e.g. MNIST 28x28 (28 % 8 != 0): drop the deepest level
         ch_mult, attn = (1, 2, 4), (14, 7)
-    fused = getattr(args, "fused_norm", True if train else "conv")
+    method = getattr(args, "method", None)
+    differentiated = not train and method in DIFFERENTIATED_METHODS
+    fused = getattr(args, "fused_norm",
+                    True if train or differentiated else "conv")
     if train and fused == "conv":
         raise ValueError(
             'fused_norm "conv" is forward-only and cannot train: use False, '
             'True or "bm"')
+    if differentiated and fused == "conv":
+        raise ValueError(
+            f'fused_norm "conv" is forward-only and method {method!r} '
+            'differentiates through the model: use False, True or "bm"')
     return VelocityUNet(
         input_channels=args.num_channels, input_height=args.dim_image,
         ch=32, ch_mult=ch_mult, num_res_blocks=6, attn_resolutions=attn,

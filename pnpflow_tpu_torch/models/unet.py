@@ -24,8 +24,9 @@ channels_last view.  ``fused_norm`` selects the GroupNorm path:
   fused ``conv3x3_gn`` kernel, whose prologue applies the preceding
   GroupNorm + swish from the moments the previous kernel emitted.
   Attention norms stay plain, as in the JAX package.  The kernel has no
-  backward, so this mode is forward-only: it raises where a gradient would
-  be recorded (train with ``False``, ``True`` or ``"bm"``).
+  backward and no forward-mode rule, so this mode is forward-only: it
+  raises where a gradient or a tangent would be taken (differentiate with
+  ``False``, ``True`` or ``"bm"``).
 
 ``dtype`` is the compute dtype (float32 or bfloat16); parameters stay
 float32 and are cast per call (the conv kernel's reordered weights are
@@ -43,7 +44,8 @@ import torch.nn.functional as F
 
 from pnpflow_tpu_torch.ops.fused_conv_gn import (
     channel_moments, concat_moments, conv3x3_gn, gn_prologue)
-from pnpflow_tpu_torch.ops.gn_swish import gn_swish_reference, groupnorm_swish
+from pnpflow_tpu_torch.ops.gn_swish import (
+    gn_swish_reference, groupnorm_swish, needs_autograd)
 from pnpflow_tpu_torch.ops.gn_swish_bm import groupnorm_swish_bm
 
 _NOT_PORTED = {
@@ -121,16 +123,16 @@ class Conv3x3(nn.Conv2d):
 
 
 def check_forward_only(module: nn.Module, *inputs):
-    """Raise where ``fused_norm "conv"`` would record a gradient: its
-    kernel has no backward, and detached weights would drop the gradients
-    of every conv without a word."""
-    if torch.is_grad_enabled() and (
-            any(t.requires_grad for t in inputs)
-            or any(p.requires_grad for p in module.parameters())):
+    """Raise where ``fused_norm "conv"`` would be differentiated: under a
+    recorded gradient, a ``torch.func`` transform or a forward-AD level.
+    Its kernel has no backward and no forward-mode rule, and detached
+    weights would drop the gradients of every conv without a word."""
+    if needs_autograd(*inputs, *module.parameters()):
         raise RuntimeError(
-            'fused_norm "conv" is forward-only and cannot record a '
-            "gradient: differentiate with fused_norm False, True or "
-            '"bm", or run under torch.no_grad() / torch.inference_mode()')
+            'fused_norm "conv" is forward-only and cannot be differentiated '
+            "(no gradient, no JVP): use fused_norm False, True or \"bm\", "
+            "or run under torch.no_grad() / torch.inference_mode() with no "
+            "torch.func transform")
 
 
 def _gn(x, norm: nn.GroupNorm, fused, swish: bool):

@@ -37,7 +37,10 @@ a cluster the card cannot hold, raises.
 Beside the kernel: :func:`gn_swish_reference`, the plain PyTorch version
 (used for CPU tensors and as the kernel's yardstick), and
 :func:`groupnorm_swish`, an autograd function whose backward is the plain
-copy of ``_gn_swish_vjp_bwd``.
+copy of ``_gn_swish_vjp_bwd`` and whose forward-mode rule (``torch.func.jvp``,
+forward AD) is the plain linearisation :func:`gn_swish_jvp`.  JAX's
+``custom_vjp`` refuses ``jax.jvp``; the port needs it for ``flow_priors``,
+whose Hutchinson term is a JVP inside a gradient.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ import torch
 from pnpflow_tpu_torch.ops import _build
 
 __all__ = ["groupnorm_swish", "groupnorm_swish_fwd", "gn_swish_reference",
-           "gn_swish_backward", "gn_plan", "GNPlan", "check_args", "launch"]
+           "gn_swish_backward", "gn_swish_jvp", "needs_autograd", "gn_plan",
+           "GNPlan", "check_args", "launch"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PATH_CODE = {"cluster": 0, "two_phase": 1}
@@ -250,53 +254,121 @@ def groupnorm_swish_fwd(x, scale, bias, num_groups: int = 32,
 groupnorm_swish_fwd.launches = 0
 
 
-def needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+def needs_autograd(*tensors) -> bool:
+    """Whether a call must go through its autograd function: a gradient is
+    recorded for one of ``tensors``, a ``torch.func`` transform (``grad``,
+    ``jvp``, ``vjp``, ...) is active, or a forward-AD level is open (a dual
+    tensor carries a tangent without ``requires_grad``).  Only where none
+    of these holds may a wrapper call its bare forward, whose ctypes launch
+    neither records a gradient nor sees a tangent."""
+    return (torch._C._functorch.peek_interpreter_stack() is not None
+            or torch.autograd.forward_ad._current_level >= 0
+            or (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors)))
 
 
-def gn_swish_backward(x, scale, bias, num_groups, eps, swish, dy):
-    """Plain copy of ``_gn_swish_vjp_bwd``: (dx, dscale, dbias)."""
+def _normalized(x, num_groups, eps):
+    """(xhat, rsqrt(var + eps), gmean) in float32, for the plain rules:
+    ``gmean(a)`` is a's mean over each group's (H, W, Cg) slab, broadcast
+    back to x's shape."""
     mean, inv = _gn_stats(x, num_groups, eps)
     mean, inv = mean[:, None, None, :], inv[:, None, None, :]
-    xhat = (x.float() - mean) * inv
-    dy = dy.float()
-    if swish:
-        ypre = xhat * scale.float() + bias.float()
-        sig = torch.sigmoid(ypre)
-        dy = dy * (sig * (1.0 + ypre * (1.0 - sig)))
-    dscale = (dy * xhat).sum(dim=(0, 1, 2)).to(scale.dtype)
-    dbias = dy.sum(dim=(0, 1, 2)).to(bias.dtype)
-    dxhat = dy * scale.float()
-
     b, h, w, c = x.shape
     cg = c // num_groups
 
-    def gmean(a):  # mean over each group's (H, W, Cg) slab
+    def gmean(a):
         m = a.reshape(b, h * w, num_groups, cg).mean(dim=(1, 3))
         return m.repeat_interleave(cg, dim=1)[:, None, None, :]
 
+    return (x.float() - mean) * inv, inv, gmean
+
+
+def _swish_slope(xhat, scale, bias):
+    """d swish(ypre) / d ypre at ypre = xhat * scale + bias."""
+    ypre = xhat * scale.float() + bias.float()
+    sig = torch.sigmoid(ypre)
+    return sig * (1.0 + ypre * (1.0 - sig))
+
+
+def gn_swish_backward(x, scale, bias, num_groups, eps, swish, dy,
+                      params: bool = True):
+    """Plain copy of ``_gn_swish_vjp_bwd``: (dx, dscale, dbias), with
+    dscale and dbias None unless ``params``."""
+    xhat, inv, gmean = _normalized(x, num_groups, eps)
+    dy = dy.float()
+    if swish:
+        dy = dy * _swish_slope(xhat, scale, bias)
+    dscale = dbias = None
+    if params:
+        dscale = (dy * xhat).sum(dim=(0, 1, 2)).to(scale.dtype)
+        dbias = dy.sum(dim=(0, 1, 2)).to(bias.dtype)
+    dxhat = dy * scale.float()
     dx = inv * (dxhat - gmean(dxhat) - xhat * gmean(dxhat * xhat))
     return dx.to(x.dtype), dscale, dbias
 
 
+def gn_swish_jvp(x, scale, bias, num_groups, eps, swish, dx, dscale,
+                 dbias):
+    """The linearisation of GroupNorm [+ swish] at (x, scale, bias) applied
+    to the tangents (dx, dscale, dbias), any of them None, in plain PyTorch
+    with the arithmetic of :func:`gn_swish_backward`:
+    dxhat = inv * (dx - E[dx] - xhat * E[xhat * dx]) over each group,
+    dypre = dxhat * scale + xhat * dscale + dbias, times swish's slope."""
+    xhat, inv, gmean = _normalized(x, num_groups, eps)
+    dy = torch.zeros_like(xhat)
+    if dx is not None:
+        dxf = dx.float()
+        dy = dy + inv * (dxf - gmean(dxf) - xhat * gmean(dxf * xhat)) \
+            * scale.float()
+    if dscale is not None:
+        dy = dy + xhat * dscale.float()
+    if dbias is not None:
+        dy = dy + dbias.float()
+    if swish:
+        dy = dy * _swish_slope(xhat, scale, bias)
+    return dy.to(x.dtype)
+
+
 class _GroupNormSwish(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, scale, bias, num_groups, eps, swish):
-        ctx.save_for_backward(x, scale, bias)
-        ctx.cfg = (num_groups, eps, swish)
-        return groupnorm_swish_fwd(x, scale, bias, num_groups, eps, swish)
+    """The kernel's forward with a plain backward and a plain forward-mode
+    rule, in the ``forward`` + ``setup_context`` form that ``torch.func``
+    transforms take.  ``backward_calls`` and ``jvp_calls`` count the rules'
+    calls, so a test can see that a transform went through them."""
+    fwd = staticmethod(groupnorm_swish_fwd)
+    backward_calls = 0
+    jvp_calls = 0
+
+    @classmethod
+    def forward(cls, x, scale, bias, num_groups, eps, swish):
+        return cls.fwd(x, scale, bias, num_groups, eps, swish)
 
     @staticmethod
-    def backward(ctx, dy):
-        return (*gn_swish_backward(*ctx.saved_tensors, *ctx.cfg, dy),
+    def setup_context(ctx, inputs, output):
+        x, scale, bias, num_groups, eps, swish = inputs
+        ctx.save_for_backward(x, scale, bias)
+        ctx.save_for_forward(x, scale, bias)
+        ctx.cfg = (num_groups, eps, swish)
+
+    @classmethod
+    def backward(cls, ctx, dy):
+        cls.backward_calls += 1
+        want = ctx.needs_input_grad
+        return (*gn_swish_backward(*ctx.saved_tensors, *ctx.cfg, dy,
+                                   params=want[1] or want[2]),
                 None, None, None)
+
+    @classmethod
+    def jvp(cls, ctx, dx, dscale, dbias, *_):
+        cls.jvp_calls += 1
+        return gn_swish_jvp(*ctx.saved_tensors, *ctx.cfg, dx, dscale, dbias)
 
 
 def groupnorm_swish(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,
                     swish: bool = True):
-    """GroupNorm(num_groups, eps) [+ swish] on NHWC, differentiable.
-    Without a gradient to record it calls the forward directly, sparing the
-    host the autograd function's cost, which a small site would feel."""
-    if needs_grad(x, scale, bias):
+    """GroupNorm(num_groups, eps) [+ swish] on NHWC, differentiable in
+    reverse and forward mode.  Where :func:`needs_autograd` finds nothing
+    to differentiate it calls the forward directly, sparing the host the
+    autograd function's cost, which a small site would feel."""
+    if needs_autograd(x, scale, bias):
         return _GroupNormSwish.apply(x, scale, bias, num_groups, eps, swish)
     return groupnorm_swish_fwd(x, scale, bias, num_groups, eps, swish)

@@ -17,16 +17,15 @@ design, ``csrc/gn_swish.cu`` (see ``ops/gn_swish.py`` for it and its
 :func:`~pnpflow_tpu_torch.ops.gn_swish.gn_plan`).  This entry keeps its own
 launch counter, its argument checks and its autograd function, whose
 backward is the plain copy of ``_gn_swish_vjp_bwd``, as the JAX entry shares
-that backward.  The plain version, for CPU tensors and as the yardstick, is
+that backward, and whose forward-mode rule is the plain linearisation.  The
+plain version, for CPU tensors and as the yardstick, is
 :func:`~pnpflow_tpu_torch.ops.gn_swish.gn_swish_reference`.
 """
 
 from __future__ import annotations
 
-import torch
-
 from pnpflow_tpu_torch.ops.gn_swish import (
-    check_args, gn_swish_backward, gn_swish_reference, launch, needs_grad)
+    _GroupNormSwish, check_args, gn_swish_reference, launch, needs_autograd)
 
 __all__ = ["groupnorm_swish_bm", "groupnorm_swish_bm_fwd"]
 
@@ -48,24 +47,22 @@ def groupnorm_swish_bm_fwd(x, scale, bias, num_groups: int = 32,
 groupnorm_swish_bm_fwd.launches = 0
 
 
-class _GroupNormSwishBM(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, scale, bias, num_groups, eps, swish):
-        ctx.save_for_backward(x, scale, bias)
-        ctx.cfg = (num_groups, eps, swish)
-        return groupnorm_swish_bm_fwd(x, scale, bias, num_groups, eps, swish)
-
-    @staticmethod
-    def backward(ctx, dy):
-        return (*gn_swish_backward(*ctx.saved_tensors, *ctx.cfg, dy),
-                None, None, None)
+class _GroupNormSwishBM(_GroupNormSwish):
+    """:class:`~pnpflow_tpu_torch.ops.gn_swish._GroupNormSwish` with this
+    entry's forward: the same plain backward and forward-mode rule, with
+    call counts of its own."""
+    fwd = staticmethod(groupnorm_swish_bm_fwd)
+    backward_calls = 0
+    jvp_calls = 0
 
 
 def groupnorm_swish_bm(x, scale, bias, num_groups: int = 32,
                        eps: float = 1e-6, swish: bool = True):
-    """GroupNorm(num_groups, eps) [+ swish] on NHWC, differentiable; the
-    forward alone where no gradient is recorded."""
-    if needs_grad(x, scale, bias):
+    """GroupNorm(num_groups, eps) [+ swish] on NHWC, differentiable in
+    reverse and forward mode; the forward alone where
+    :func:`~pnpflow_tpu_torch.ops.gn_swish.needs_autograd` finds nothing to
+    differentiate."""
+    if needs_autograd(x, scale, bias):
         return _GroupNormSwishBM.apply(x, scale, bias, num_groups, eps,
                                        swish)
     return groupnorm_swish_bm_fwd(x, scale, bias, num_groups, eps, swish)

@@ -48,9 +48,11 @@ import torch
 import torch.nn.functional as F
 
 from pnpflow_tpu_torch.ops import _build
+from pnpflow_tpu_torch.ops.gn_swish import needs_autograd
 
 __all__ = [
-    "setup_kernel", "upfirdn2d", "upfirdn2d_reference", "fir_plan",
+    "setup_kernel", "upfirdn2d", "upfirdn2d_reference", "adjoint_geometry",
+    "fir_plan",
     "FirPlan", "fir_geometry", "fir_phase_table", "upsample_2d",
     "downsample_2d", "upsample_conv_2d", "conv_downsample_2d",
     "naive_upsample_2d", "naive_downsample_2d",
@@ -253,12 +255,16 @@ def _flipped_taps(k, up, down, pad0, pad1):
     return taps
 
 
-def upfirdn2d(x, k, up: int = 1, down: int = 1, pad=(0, 0)):
-    """upfirdn2d on NHWC.  The arguments are checked as the kernel takes
-    them on every device, so a CPU run finds what the card would refuse;
-    then CPU tensors take :func:`upfirdn2d_reference` and CUDA tensors
-    launch the kernel on the path :func:`fir_plan` picks (counted in
-    ``upfirdn2d.launches`` and ``upfirdn2d.paths``) or raise."""
+ROLES = ("forward", "adjoint", "tangent")
+
+
+def _upfirdn2d_fwd(x, k, up, down, pad, role):
+    """The bare forward: the arguments are checked as the kernel takes them
+    on every device, so a CPU run finds what the card would refuse; then
+    CPU tensors take :func:`upfirdn2d_reference` and CUDA tensors launch
+    the kernel on the path :func:`fir_plan` picks (counted in
+    ``upfirdn2d.launches``, ``.paths`` and, by ``role``, ``.roles``) or
+    raise."""
     k = np.asarray(k, dtype=np.float32)
     pad0, pad1 = _check_args(x, k, up, down, pad)
     if x.dtype not in _DTYPE_CODE:
@@ -298,11 +304,93 @@ def upfirdn2d(x, k, up: int = 1, down: int = 1, pad=(0, 0)):
                            f"{tuple(x.shape)} {x.dtype}: {plan}")
     upfirdn2d.launches += 1
     upfirdn2d.paths[plan.path] += 1
+    upfirdn2d.roles[role] += 1
     return y
+
+
+def adjoint_geometry(h: int, w: int, k, up: int, down: int, pad):
+    """The upfirdn2d whose output is the gradient of an (h, w) input:
+    ``(taps, up, down, (pad0, pad1), crop)``, as StyleGAN2's
+    ``UpFirDn2dBackward`` (the RectifiedFlow op the reference vendors) takes
+    it: the taps flipped, up and down swapped, pad0' = K - pad0 - 1 and
+    pad1' = H*up - OH*down + pad0 - up + 1 per axis, which makes its output
+    h x w.  The kernel takes one pad for both axes, and no negative one:
+    where the two axes' pad1' differ (a non-square input) or one is
+    negative (the forward never reads its last inputs' zero tail), it runs
+    with the largest pad1', at least 0, and ``crop`` = (h, w) keeps the
+    first outputs, which a larger pad1' leaves as they are; ``crop`` is
+    None where nothing is cut.  The NCSN++'s sites are square and take
+    pad1' >= 0."""
+    k = np.asarray(k, dtype=np.float32)
+    kk = k.shape[0]
+    pad0, pad1 = int(pad[0]), int(pad[1])
+    g0 = kk - pad0 - 1
+    if g0 < 0:
+        raise NotImplementedError(
+            f"pad0 {pad0} >= K {kk}: the adjoint would need a negative pad")
+    g1s = [n_in * up - ((n_in * up + pad0 + pad1 - kk) // down + 1) * down
+           + pad0 - up + 1 for n_in in (h, w)]
+    g1 = max(*g1s, 0)
+    crop = None if g1s == [g1, g1] else (h, w)
+    return k[::-1, ::-1].copy(), down, up, (g0, g1), crop
+
+
+class _UpFirDn2d(torch.autograd.Function):
+    """upfirdn2d as an autograd function in the ``forward`` +
+    ``setup_context`` form that ``torch.func`` transforms take.  Its
+    backward is upfirdn2d on the cotangent with :func:`adjoint_geometry`,
+    so a CUDA cotangent launches the same kernel; the op is linear, so its
+    forward-mode rule is the forward on the tangent.  Both go through the
+    entry's dispatch, so they are differentiable in turn; ``role`` says
+    under which name the launch is counted."""
+
+    @staticmethod
+    def forward(x, k, up, down, pad, role):
+        return _upfirdn2d_fwd(x, k, up, down, pad, role)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, k, up, down, pad, _ = inputs
+        ctx.geometry = (k, up, down, pad)
+        ctx.adjoint = adjoint_geometry(x.shape[1], x.shape[2], k, up, down,
+                                       pad)
+
+    @staticmethod
+    def backward(ctx, dy):
+        taps, up, down, pad, crop = ctx.adjoint
+        dx = _upfirdn2d(dy.contiguous(), taps, up, down, pad, "adjoint")
+        if crop is not None:
+            dx = dx[:, :crop[0], :crop[1]].contiguous()
+        return dx, None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, dx, *_):
+        return _upfirdn2d(dx.contiguous(), *ctx.geometry, "tangent")
+
+
+def _upfirdn2d(x, k, up, down, pad, role):
+    if needs_autograd(x):
+        return _UpFirDn2d.apply(x, k, up, down, pad, role)
+    return _upfirdn2d_fwd(x, k, up, down, pad, role)
+
+
+def upfirdn2d(x, k, up: int = 1, down: int = 1, pad=(0, 0)):
+    """upfirdn2d on NHWC, differentiable in reverse and forward mode.  The
+    arguments are checked as the kernel takes them on every device; then
+    CPU tensors take :func:`upfirdn2d_reference` and CUDA tensors launch
+    the kernel or raise, in the forward, in the backward (the adjoint
+    geometry) and under a forward-mode transform (the tangent).  Launches
+    are counted in ``upfirdn2d.launches``, by path in ``.paths`` and by
+    role ("forward", "adjoint", "tangent") in ``.roles``.  Where
+    :func:`~pnpflow_tpu_torch.ops.gn_swish.needs_autograd` finds nothing to
+    differentiate, the bare forward runs without the autograd function."""
+    return _upfirdn2d(x, k, int(up), int(down), (int(pad[0]), int(pad[1])),
+                      "forward")
 
 
 upfirdn2d.launches = 0
 upfirdn2d.paths = dict.fromkeys(PATHS, 0)
+upfirdn2d.roles = dict.fromkeys(ROLES, 0)
 
 
 def upsample_2d(x, k=None, factor: int = 2, gain: float = 1.0):

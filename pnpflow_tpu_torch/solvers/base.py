@@ -66,11 +66,24 @@ def peak_memory_info(device) -> tuple:
 
 
 class Solver:
-    """Base class with the reference-compatible outer loop."""
+    """Base class with the reference-compatible outer loop.
+
+    ``differentiates`` marks a solver that differentiates through the
+    model: its loop runs under ``torch.no_grad()`` (autograd refuses to
+    save the inference tensors that ``torch.inference_mode()`` makes) and
+    it opens ``torch.enable_grad()`` where it differentiates; the model's
+    parameters are frozen, since the solvers differentiate with respect to
+    the image or latent alone, as JAX does.  Other solvers run under
+    ``torch.inference_mode()``, which spares the host autograd's
+    bookkeeping."""
+
+    differentiates = False
 
     def __init__(self, model: ModelBundle, args):
         self.model = model
         self.args = args
+        if self.differentiates:
+            model.model.requires_grad_(False)
 
     def solve_batch(self, clean_img, noisy_img, degradation, sigma_noise,
                     batch: int, report_cb=None):
@@ -83,8 +96,12 @@ class Solver:
         os.makedirs(args.save_path_ip, exist_ok=True)
         self.solve_ip(data_loaders[args.eval_split], degradation, sigma_noise)
 
-    @torch.inference_mode()
     def solve_ip(self, test_loader, degradation, sigma_noise):
+        with (torch.no_grad() if self.differentiates
+              else torch.inference_mode()):
+            self._solve_ip(test_loader, degradation, sigma_noise)
+
+    def _solve_ip(self, test_loader, degradation, sigma_noise):
         args = self.args
         dev = self.model.device
         args.sigma_noise = sigma_noise

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-_NOT_PORTED = ("ot_ode", "d_flow", "flow_priors", "pnp_gs", "pnp_diff")
+_NOT_PORTED = ("pnp_gs", "pnp_diff")
 
 
 def build_solver(bundle, args):
@@ -10,8 +10,20 @@ def build_solver(bundle, args):
         from pnpflow_tpu_torch.solvers.pnp_flow import PnPFlow
 
         return PnPFlow(bundle, args)
+    if args.method == "ot_ode":
+        from pnpflow_tpu_torch.solvers.ot_ode import OTOde
+
+        return OTOde(bundle, args)
+    if args.method == "d_flow":
+        from pnpflow_tpu_torch.solvers.d_flow import DFlow
+
+        return DFlow(bundle, args)
+    if args.method == "flow_priors":
+        from pnpflow_tpu_torch.solvers.flow_priors import FlowPriors
+
+        return FlowPriors(bundle, args)
     if args.method in _NOT_PORTED:
         raise NotImplementedError(
             f"method {args.method!r} is not ported yet (ROADMAP queue 1, "
-            "items 8-10)")
+            "items 9-10)")
     raise ValueError("The method you entered does not exist")

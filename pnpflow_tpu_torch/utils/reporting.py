@@ -265,11 +265,12 @@ def _save_eps(args, clean, noisy, rec, iter):
 def save_images(clean_img, noisy_img, rec_img, args, H_adj=None,
                 iter="final"):
     """Final clean / noisy / restored grids as PNG, plus per-image .eps
-    files for the first test batches (batch < 4)."""
+    files for the first test batches (batch < 4, or < 8 for d_flow)."""
     clean = (_host(clean_img).numpy() + 1.0) / 2.0
     noisy = (_host(_noisy_view(noisy_img, args, H_adj)).numpy() + 1.0) / 2.0
     rec = (_host(rec_img).numpy() + 1.0) / 2.0
-    if getattr(args, "eval_split", None) == "test" and args.batch < 4:
+    first = args.batch < (8 if args.method == "d_flow" else 4)
+    if getattr(args, "eval_split", None) == "test" and first:
         _save_eps(args, clean, noisy, rec, iter)
     for name, img in zip(["clean", "noisy", args.method], [clean, noisy, rec]):
         write_png(os.path.join(

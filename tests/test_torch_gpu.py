@@ -480,3 +480,93 @@ def test_train_step_on_card_matches_cpu(cuda):
                 scale = float(sc[k].abs().max())
                 assert float((sg[k].cpu() - sc[k]).abs().max()) <= (
                     1e-4 * scale), (n, k)
+
+
+# ------------------------------------------------- autodiff through kernels
+def _differentiated_unets(cuda, fused):
+    """The flagship at 64^2 with every parameter random, ``fused`` and
+    False on the same weights, frozen as the solvers freeze them."""
+    base = _randomized(VelocityUNet(**FLAGSHIP_64), 3)
+    m = VelocityUNet(**FLAGSHIP_64, fused_norm=fused)
+    m.load_state_dict(base.state_dict())
+    return (base.to(cuda).eval().requires_grad_(False),
+            m.to(cuda).eval().requires_grad_(False))
+
+
+@pytest.mark.parametrize("fused", [True, "bm"])
+def test_unet_vjp_and_jvp_through_the_gn_kernel(cuda, fused):
+    """A VJP and a JVP of the flagship through the GroupNorm kernel against
+    the plain GroupNorm, on the card; the kernel launches once per site in
+    each forward, its autograd function's rules carry both."""
+    base, m = _differentiated_unets(cuda, fused)
+    fwd = groupnorm_swish_fwd if fused is True else groupnorm_swish_bm_fwd
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x, w = (torch.randn(4, 64, 64, 3, generator=g, device=cuda)
+            for _ in range(2))
+    t = torch.rand(4, generator=g, device=cuda)
+    sites = sum(isinstance(mod, torch.nn.GroupNorm) for mod in m.modules())
+    out = {}
+    for name, model in (("plain", base), ("kernel", m)):
+        before = fwd.launches
+        xr = x.clone().requires_grad_()
+        (vjp,) = torch.autograd.grad(model(xr, t), xr, w)
+        _, jvp = torch.func.jvp(lambda z: model(z, t), (x,), (w,))
+        torch.cuda.synchronize()
+        out[name] = (vjp, jvp, fwd.launches - before)
+    for i in range(2):
+        want, got = out["plain"][i], out["kernel"][i]
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        assert rel <= 1e-4
+    assert out["plain"][2] == 0 and out["kernel"][2] == 2 * sites
+
+
+@pytest.mark.parametrize("kind", [FIR_DOWN, FIR_UP])
+@pytest.mark.parametrize("c", [128, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upfirdn2d_gradient_and_jvp_launch_the_kernel(cuda, kind, c, dtype):
+    """The FIR's backward is the kernel in the adjoint geometry, its JVP the
+    kernel on the tangent: each one launch, counted by role, against
+    autograd through the plain version on the card."""
+    up, down, pad = kind
+    k = _fir_taps(up)
+    g = torch.Generator(device=cuda).manual_seed(c + up)
+    x = torch.randn(4, 32, 32, c, generator=g, device=cuda).to(dtype)
+    y = upfirdn2d_reference(x, k, up=up, down=down, pad=pad)
+    dy, dx = (torch.randn(s, generator=g, device=cuda).to(dtype)
+              for s in (y.shape, x.shape))
+    grads = []
+    for fn in (upfirdn2d, upfirdn2d_reference):
+        xr = x.clone().requires_grad_()
+        before = dict(upfirdn2d.roles)
+        (gx,) = torch.autograd.grad(fn(xr, k, up, down, pad), xr, dy)
+        grads.append((gx, {r: v - before[r]
+                           for r, v in upfirdn2d.roles.items()}))
+    (got, roles), (want, plain_roles) = grads
+    assert roles == {"forward": 1, "adjoint": 1, "tangent": 0}
+    assert plain_roles == dict.fromkeys(roles, 0)
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = (1e-5 if dtype == torch.float32 else 2e-2) * scale
+    assert got.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    before = dict(upfirdn2d.roles)
+    _, jvp = torch.func.jvp(lambda z: upfirdn2d(z, k, up, down, pad), (x,),
+                            (dx,))
+    assert {r: v - before[r] for r, v in upfirdn2d.roles.items()} == {
+        "forward": 1, "adjoint": 0, "tangent": 1}
+    assert torch.equal(jvp, upfirdn2d(dx, k, up, down, pad))
+
+
+def test_gn_kernel_jvp_rule_at_a_flagship_site(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x, dx = (torch.randn(4, 16, 16, 256, generator=g, device=cuda)
+             for _ in range(2))
+    s = torch.randn(256, generator=g, device=cuda) * 0.2 + 1
+    b = torch.randn(256, generator=g, device=cuda) * 0.1
+    before = groupnorm_swish_fwd.launches
+    y, got = torch.func.jvp(lambda z: groupnorm_swish(z, s, b), (x,), (dx,))
+    assert groupnorm_swish_fwd.launches == before + 1
+    want_y, want = torch.func.jvp(lambda z: gn_swish_reference(z, s, b),
+                                  (x,), (dx,))
+    assert float((y - want_y).abs().max()) <= 1e-4
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
