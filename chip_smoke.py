@@ -18,10 +18,12 @@ failure (nothing is caught and passed over) and prints its seconds:
    (the restoration halves), plus every epilogue combination; both
    GroupNorm entries at the 64x64 sites at 20 images and the 128x128 ones
    at 4 (where float32 samples of 64 and 96 channels fit no cluster and
-   take the two-phase path), and groupnorm_swish at the 128x128 sites at
-   the training batch of 128 in float32, forward and the gradients
-   through its autograd function, with the launch plans the train step
-   takes; the conv, GroupNorm and FIR kernels must also repeat bit for
+   take the two-phase path), and groupnorm_swish in float32, forward and
+   the gradients through its autograd function, with the launch plans the
+   model's forward takes there, at every batch a path runs it under a
+   gradient: the 128x128 sites at the training batch of 128, the GS
+   trainer's 32 and the GS restoration's 4, and the 64x64 sites at the
+   differentiated methods' 4; the conv, GroupNorm and FIR kernels must also repeat bit for
    bit, and each FIR site must take the tiled path (the narrow one at
    C = 3); then under autodiff at the differentiated methods' batch of 4:
    upfirdn2d's backward (the kernel in the adjoint geometry) at every
@@ -34,7 +36,11 @@ failure (nothing is caught and passed over) and prints its seconds:
    parameter's gradient with ``fused_norm`` True against False (summed over
    slices of 32 images); then autodiff: the flagship's VJP and JVP at
    64x64 and 4 images, True against False, and the NCSN++ 256^2's VJP on
-   the card against the CPU;
+   the card against the CPU; then the gradient-step denoiser on the
+   flagship at 128x128 and 4 images (Dg and every parameter's GS-loss
+   gradient, second order through the GroupNorm rules, True against
+   False), and the full-width DiffUNet at 256x256 and 2 images on the card
+   against the CPU, with its time and peak memory per 4-image forward;
 6. main path: the port's CLI, pnp_flow on synthetic images -- the U-Net at
    64x64 (FFT deblur; "conv" fp32 at 100 steps, "conv" bf16, True and "bm"
    at 10) and the rectified NCSN++ at 256x256 (FFT deblur fp32 at 30 steps,
@@ -48,6 +54,17 @@ failure (nothing is caught and passed over) and prints its seconds:
    20 to 1 (20 LBFGS iterations; the default takes about 20 times as long)
    and ot_ode on bicubic super-resolution (GMRES, 10 steps), and the
    NCSN++ 256^2 with ot_ode at 5 steps (4 VJPs) and flow_priors at N 2;
+   then pnp_gs with ``model gradient_step`` (the flagship at 64x64, 4
+   images): pgd and hqs FFT deblurring and hqs random inpainting at the
+   default 30 iterations, hqs bicubic SR at 10, and pgd at 10, whose peak
+   memory must equal the 30-iteration run's; ``train True eval True`` with
+   ``model gradient_step`` at 128x128 for 2 epochs of the 256-image
+   synthetic split at batch 32 (cut from the config's 128: a GS step keeps
+   about 2 GB an image at 128x128, so 32 is the largest power of two that
+   fits the card's 80 GB), then 10 pgd iterations from the checkpoint it
+   wrote; pnp_diff with ``model diffusion`` (the full-width
+   DiffUNet at 256x256, 4 images): FFT deblurring at the default 100 steps
+   and laplace-noise inpainting (the L1 dual prox) at 10;
    every launch counter set to 0 before each run and read after;
 7. timing: CUDA-event times of each kernel, its plain version and the
    PyTorch library call, per forward at the bench shapes (U-Net: 64x64, 64
@@ -120,6 +137,18 @@ D_FLOW_MAX_ITER = 1     # of the default 20 LBFGS steps (20 iterations each)
 BICUBIC_STEPS = 10      # ot_ode steps_ode for bicubic SR (GMRES): 8 steps
 RECT_OT_STEPS = 5       # ot_ode on the NCSN++ 256^2: 4 VJP steps
 RECT_FP_N = 2           # flow_priors on the NCSN++ 256^2: 2 outer steps
+GS_PARITY_BATCH = 4     # images of the GS denoiser parity at 128x128
+GS_ITERS = 30           # pnp_gs max_iter, the default
+GS_SR_ITERS = 10        # pnp_gs hqs bicubic SR
+GS_TRAIN_BATCH = 32     # the GS trainer's batch, cut from 128 (memory)
+GS_TRAIN_EPOCHS = 2
+GS_EVAL_BATCH = 4       # batch_size_ip of the GS restoration at 128x128
+GS_EVAL_ITERS = 10      # pgd iterations restoring with the trained weights
+SYNTHETIC_TRAIN = 256   # images in the synthetic train split
+DIFF_DIM = 256          # the DiffUNet's geometry (DiffPIR ffhq_10m)
+DIFFUNET_PARITY_BATCH = 2
+PNP_DIFF_STEPS = 100    # pnp_diff max_iter, the default
+PNP_DIFF_LAPLACE_STEPS = 10
 
 
 def fail(msg):
@@ -367,7 +396,18 @@ def kernel_parity(torch, dev, gn_sites, conv_sites, firs, train_sites):
                     err[name] = max(err[name], d)
     check(set(paths) == {"cluster", "two_phase"},
           f"GroupNorm parity did not reach both paths: {dict(paths)}")
-    train_plans = train_gn_parity(torch, dev, train_sites[0])
+    # the forward plans of every batch and size a path of the script runs
+    # the kernel at under a gradient: the FM train step, the GS train step,
+    # the GS restoration and parity at 128x128, and the differentiated
+    # methods (pnp_gs among them) at 64x64
+    by_dim = {TRAIN_DIM: train_sites[0], 64: gn_sites}
+    train_plans = {}
+    for j, (dim, bn) in enumerate(dict.fromkeys((
+            (TRAIN_DIM, TRAIN_BATCH), (TRAIN_DIM, GS_TRAIN_BATCH),
+            (TRAIN_DIM, GS_EVAL_BATCH), (TRAIN_DIM, GS_PARITY_BATCH),
+            (64, DIFF_BATCH)))):
+        train_plans[f"{dim}x{dim}/{bn}"] = train_gn_parity(
+            torch, dev, by_dim[dim], bn, 300 + 1000 * j)
 
     combos = [(32, 64, 64, p, s, r) for p in (False, True)
               for s in (False, True) for r in (False, True)]
@@ -432,24 +472,24 @@ def kernel_parity(torch, dev, gn_sites, conv_sites, firs, train_sites):
                             "fir_sites": len(set(firs)),
                             "fir_paths": fir_path_counts, "batch": n,
                             "max_abs_err_fp32": err}})
-    return err
+    return err, train_plans
 
 
-def train_gn_parity(torch, dev, sites):
-    """groupnorm_swish in float32 at each GroupNorm site of the 128x128
-    flagship and the training batch of 128, with the plans the train step's
-    forward launches there (``gn_plan`` depends on n).  The output within
-    1e-4 of the plain version and bit for bit on a repeat; x's, the scale's
-    and the bias's gradients through the autograd function within 1e-4 of
-    each gradient's max|g| against autograd through the plain version.
-    Returns each site's plan."""
+def train_gn_parity(torch, dev, sites, n, seed=300):
+    """groupnorm_swish in float32 at each GroupNorm site in ``sites`` and
+    ``n`` images, with the plans a forward of the model launches there
+    (``gn_plan`` depends on n).  The output within 1e-4 of the plain
+    version and bit for bit on a repeat; x's, the scale's and the bias's
+    gradients through the autograd function within 1e-4 of each gradient's
+    max|g| against autograd through the plain version.  Returns each
+    site's plan."""
     from pnpflow_tpu_torch.ops.gn_swish import (
         gn_plan, gn_swish_reference, groupnorm_swish, groupnorm_swish_fwd)
 
-    n, plans, worst = TRAIN_BATCH, [], {"fwd": 0.0, "grad_rel": 0.0}
+    plans, worst = [], {"fwd": 0.0, "grad_rel": 0.0}
     for i, (h, c, swish) in enumerate(sorted(set(sites))):
         where = f"groupnorm_swish float32 at {(n, h, c, swish)}"
-        x, s, b = gn_inputs(torch, dev, n, h, c, torch.float32, 300 + i)
+        x, s, b = gn_inputs(torch, dev, n, h, c, torch.float32, seed + i)
         with torch.no_grad():
             got = groupnorm_swish_fwd(x, s, b, 32, 1e-6, swish)
             torch.cuda.synchronize()
@@ -462,7 +502,7 @@ def train_gn_parity(torch, dev, sites):
             del got, want
         worst["fwd"] = max(worst["fwd"], d)
         dy = torch.randn(x.shape, generator=torch.Generator(
-            device=dev).manual_seed(400 + i), device=dev)
+            device=dev).manual_seed(seed + 100 + i), device=dev)
         grads = []
         for fn in (groupnorm_swish, gn_swish_reference):
             args = [a.detach().requires_grad_() for a in (x, s, b)]
@@ -479,6 +519,7 @@ def train_gn_parity(torch, dev, sites):
         plans.append({"site": [h, c, swish], "path": p.path, "k": p.k})
     torch.cuda.empty_cache()
     emit({"kernel_parity": "groupnorm_swish_train", "batch": n,
+          "image": max(h for h, _, _ in sites), "plans": plans,
           "sites": len(plans), "max_abs_err": worst["fwd"],
           "grad_worst_rel_err": worst["grad_rel"],
           "tolerances": {"fwd_abs": 1e-4, "grad_rel_of_max": 1e-4}})
@@ -828,20 +869,24 @@ def method_keys(method):
         HERE, "config", "method_config", f"{method}.yaml")))
 
 
-def cli_run(torch, extra, steps, rect_ckpt=None, method="pnp_flow"):
+def cli_run(torch, extra, steps, ckpt=None, method="pnp_flow"):
     """One CLI run on synthetic images, FFT deblurring unless ``extra``
     says otherwise, batch 4 (pnp_flow: x 5 MC samples, ``steps`` PnP
     steps); checks the reference file set and a finite PSNR and returns the
-    launches, the time per batch and the peak memory it wrote."""
+    launches, the time per batch and the peak memory it wrote.  ``ckpt``,
+    a ``.pt`` or ``.msgpack`` file, is linked in as the checkpoint of the
+    model that ``extra`` names."""
     import ast
 
     from pnpflow_tpu_torch.main import main
 
     with tempfile.TemporaryDirectory() as out:
-        if rect_ckpt is not None:
-            ck = os.path.join(out, "model", "synthetic", "rectified")
+        if ckpt is not None:
+            model = extra[extra.index("model") + 1]
+            ck = os.path.join(out, "model", "synthetic", model)
             os.makedirs(ck)
-            os.symlink(rect_ckpt, os.path.join(ck, "model_final.pt"))
+            os.symlink(ckpt, os.path.join(
+                ck, "model_final" + os.path.splitext(ckpt)[1]))
         opts = ["dataset", "synthetic", "model", "ot", "eval", "True",
                 "method", method, "problem", "gaussian_deblurring_FFT",
                 "batch_size_ip", "4", "max_batch", "1",
@@ -1075,6 +1120,297 @@ def train_path(torch):
         r = train_run(torch, TRAIN_BATCH)
     emit({"main_path": "train_fp32", **r})
     return r
+
+
+# ------------------------------ 5b/6b. gradient-step denoiser and DiffPIR
+def gs_model_parity(torch, dev):
+    """The gradient-step denoiser on the flagship at 128x128 and
+    GS_PARITY_BATCH images, ``fused_norm`` True (the groupnorm_swish kernel
+    forward, the VJP through its plain backward, which the GS loss's
+    gradient differentiates again) against False on the same weights:
+    ``calculate_grad``'s Dg within 1e-4 of max|Dg|; the GS loss within rel
+    1e-5 and each parameter's gradient within 1e-4 of its tensor's max, with
+    the NOISE_FLOOR rule of the training parity.  Launches: one per site in
+    each of the two True forwards."""
+    from pnpflow_tpu_torch.training.denoiser import (
+        calculate_grad, denoiser_forward)
+
+    n, dim = GS_PARITY_BATCH, TRAIN_DIM
+    g = torch.Generator(device=dev).manual_seed(13)
+    y = 0.5 * torch.randn(n, dim, dim, 3, generator=g, device=dev)
+    x = y + 0.1 * torch.randn(y.shape, generator=g, device=dev)
+    sv = torch.full((n,), 0.1, device=dev)
+    out = {}
+    for fused in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        m = randomized_unet(torch, dev, fused, input_height=dim)
+        reset_counts()
+        with torch.no_grad():
+            dg, _ = calculate_grad(m, x, sv)
+        x_hat, _ = denoiser_forward(m, x, sv, create_graph=True)
+        loss = ((x_hat - y) ** 2).reshape(n, -1).mean(dim=1).mean()
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        torch.cuda.synchronize()
+        out[fused] = (dg, float(loss.detach()),
+                      dict(zip([k for k, _ in m.named_parameters()], grads)),
+                      read_counts(), torch.cuda.max_memory_allocated())
+        del m, x_hat, loss, grads
+        torch.cuda.empty_cache()
+    (dgw, lw, gw, cw, pw), (dgg, lg, gg, cg, pg) = out[False], out[True]
+    rel_dg = float((dgg - dgw).abs().max()) / float(dgw.abs().max())
+    floor = NOISE_FLOOR * max(float(v.abs().max()) for v in gw.values())
+    worst, noise = 0.0, []
+    for k, w in gw.items():
+        scale = float(w.abs().max())
+        if scale < floor:
+            noise.append(k)
+            check(float(gg[k].abs().max()) < floor,
+                  f"GS parity: {k} is noise under False, not True")
+            continue
+        rel = float((gg[k] - w).abs().max()) / scale
+        worst = max(worst, rel)
+        check(rel <= 1e-4, f"GS parity: {k} gradient rel err {rel}")
+    rel_loss = abs(lg - lw) / abs(lw)
+    emit({"model_parity": "gs_denoiser", "image": dim, "batch": n,
+          "dg_rel_err": rel_dg, "loss": [lw, lg], "loss_rel_err": rel_loss,
+          "grad_worst_rel_err": worst, "grad_tensors": len(gw),
+          "noise_tensors": noise, "launches": cg,
+          "max_memory_allocated": {"False": pw, "True": pg},
+          "tolerances": {"dg_rel_of_max": 1e-4, "loss_rel": 1e-5,
+                         "grad_rel_of_tensor_max": 1e-4,
+                         "noise_floor_of_max_grad": NOISE_FLOOR}})
+    check(math.isfinite(lw) and math.isfinite(lg), "GS loss not finite")
+    check(rel_dg <= 1e-4, f"GS parity: Dg rel err {rel_dg}")
+    check(rel_loss <= 1e-5, f"GS parity: loss rel err {rel_loss}")
+    check(cw == only() and cg == only(groupnorm_swish=2 * gn_sites_at(dim)),
+          f"GS parity launches {cw} / {cg}")
+
+
+def randomized_diffunet_state(torch, seed=0):
+    """A state_dict of the full-width DiffUNet with every parameter at a
+    real scale (``init_diffunet_real_scale``)."""
+    from pnpflow_tpu_torch.models.diffunet import (
+        DiffUNet, init_diffunet_real_scale)
+
+    return init_diffunet_real_scale(DiffUNet(), seed).state_dict()
+
+
+def diffunet_parity(torch, dev, state):
+    """The full-width DiffUNet at 256x256 on the card (cuDNN, TF32 off)
+    against the same weights on the CPU, DIFFUNET_PARITY_BATCH images,
+    within 1e-4 of max|out|; no kernel of the repository runs.  Then its
+    time per forward (median of FORWARD_REPS) and peak memory at pnp_diff's
+    batch of 4."""
+    from pnpflow_tpu_torch.models.diffunet import DiffUNet
+
+    xg = torch.Generator().manual_seed(22)
+    x = torch.randn(DIFFUNET_PARITY_BATCH, DIFF_DIM, DIFF_DIM, 3,
+                    generator=xg)
+    t = torch.tensor([37.0, 801.0])
+    with torch.inference_mode():
+        cpu = DiffUNet()
+        cpu.load_state_dict(state)
+        want = cpu(x, t)
+        card = DiffUNet()
+        card.load_state_dict(state)
+        card.to(dev).eval()
+        reset_counts()
+        got = card(x.to(dev), t.to(dev))
+        torch.cuda.synchronize()
+        launches = read_counts()
+        x4 = torch.randn(DIFF_BATCH, DIFF_DIM, DIFF_DIM, 3, device=dev)
+        t4 = torch.full((DIFF_BATCH,), 500.0, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_median_ms(torch, lambda: card(x4, t4))
+        peak = torch.cuda.max_memory_allocated()
+    vmax = float(want.abs().max())
+    rel = float((got.cpu() - want).abs().max()) / vmax
+    emit({"model_parity": "diffunet_256", "batch": DIFFUNET_PARITY_BATCH,
+          "max_abs_out": vmax, "rel_err": rel, "rel_tol": 1e-4,
+          "launches": launches, "forward_ms_at_4": ms,
+          "forward_peak_at_4": peak})
+    check(torch.isfinite(got).all().item() and vmax > 1e-3,
+          f"DiffUNet output not finite or vanishing (max {vmax})")
+    check(rel <= 1e-4, f"DiffUNet card vs CPU: rel err {rel}")
+    check(launches == only(), f"DiffUNet launches {launches}")
+    del card, got
+    torch.cuda.empty_cache()
+
+
+def pnp_gs_path(torch):
+    """pnp_gs through the CLI: ``model gradient_step`` (the flagship U-Net,
+    ``fused_norm`` True by the method's default), 64x64, 4 images, fp32,
+    seeded random weights: pgd and hqs FFT deblurring and hqs random
+    inpainting at the default 30 iterations, hqs bicubic SR at
+    GS_SR_ITERS; and pgd at 10 iterations, whose peak memory must equal
+    the 30-iteration run's (no graph lives across iterations).  Each
+    iteration is one forward and its VJP: exactly 136 groupnorm_swish
+    launches."""
+    gs = ["model", "gradient_step"]
+    runs = (
+        ("pnp_gs_pgd_fp32", gs + ["algo", "pgd"], GS_ITERS),
+        ("pnp_gs_pgd_fp32_10it", gs + ["algo", "pgd", "max_iter", "10"], 10),
+        ("pnp_gs_hqs_fp32", gs + ["algo", "hqs"], GS_ITERS),
+        ("pnp_gs_hqs_inpainting_fp32",
+         gs + ["algo", "hqs", "problem", "random_inpainting"], GS_ITERS),
+        ("pnp_gs_hqs_sr_bicubic_fp32",
+         gs + ["algo", "hqs", "problem", "superresolution_bicubic",
+               "max_iter", str(GS_SR_ITERS)], GS_SR_ITERS),
+    )
+    out = {}
+    for name, extra, iters in runs:
+        torch.cuda.empty_cache()
+        with phase(f"main_path/{name}"):
+            r = cli_run(torch, extra, iters, method="pnp_gs")
+        expect = only(groupnorm_swish=GN_SITES_64 * iters)
+        check(r["launches"] == expect,
+              f"{name}: launches {r['launches']}, expected {expect}")
+        r["seconds_per_iteration"] = r["time_per_batch"] / iters
+        r["iterations"] = iters
+        emit({"main_path": name, **r})
+        out[name] = r
+    p10 = out["pnp_gs_pgd_fp32_10it"]["max_memory_allocated"]
+    p30 = out["pnp_gs_pgd_fp32"]["max_memory_allocated"]
+    emit({"pnp_gs_peak_after": {"10": p10, "30": p30}})
+    check(p30 == p10, f"pnp_gs peak grows with iterations: {p10} at 10, "
+          f"{p30} at 30")
+    return out
+
+
+def train_gs_run(torch, batch):
+    """``train True eval True`` with ``model gradient_step`` through the
+    CLI: the flagship U-Net at 128x128 trained for GS_TRAIN_EPOCHS epochs
+    over the synthetic split (SYNTHETIC_TRAIN images, batch ``batch``; fp32,
+    ``fused_norm`` True), then GS_EVAL_ITERS pgd iterations of pnp_gs (FFT
+    deblurring, GS_EVAL_BATCH images) restoring with the ``model_final.msgpack`` it
+    wrote.  Checks the file set, the parameter count, finite losses, that
+    the eval half loaded the checkpoint, and the exact launch counts (one
+    forward a step and an iteration)."""
+    from pnpflow_tpu_torch.main import main
+    from pnpflow_tpu_torch.models.unet import VelocityUNet
+
+    steps = GS_TRAIN_EPOCHS * (SYNTHETIC_TRAIN // batch)
+    with tempfile.TemporaryDirectory() as out:
+        opts = ["dataset", "synthetic", "dim_image", str(TRAIN_DIM),
+                "model", "gradient_step", "train", "True",
+                "num_epoch", str(GS_TRAIN_EPOCHS),
+                "batch_size_train", str(batch), "eval", "True",
+                "method", "pnp_gs", "algo", "pgd",
+                "problem", "gaussian_deblurring_FFT",
+                "max_iter", str(GS_EVAL_ITERS),
+                "batch_size_ip", str(GS_EVAL_BATCH),
+                "max_batch", "1", "save_results", "True",
+                "compute_time", "True", "compute_memory", "True",
+                "output_root", out]
+        reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            args = main(["--opts"] + opts)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        msgs = [str(w.message) for w in caught]
+        d = os.path.join(out, "model", "synthetic", "gradient_step")
+        res = os.path.join(out, "results", "synthetic", "gradient_step")
+        for f in [f"gradient_step_denoiser_{e}.msgpack"
+                  for e in range(GS_TRAIN_EPOCHS)] + [
+                "gradient_step_denoiser_final.msgpack", "model_final.msgpack"]:
+            check(os.path.exists(os.path.join(d, f)), f"train_gs: missing {f}")
+        n_params = sum(p.numel() for p in VelocityUNet(
+            **dict(FLAGSHIP, input_height=TRAIN_DIM)).parameters())
+        with open(os.path.join(res, "model_info.txt")) as f:
+            info = f.read().splitlines()
+        check(info[:2] == ["PARAMETERS", f"Number of parameters: {n_params}"],
+              f"train_gs model_info.txt: {info}")
+        with open(os.path.join(res, "loss_training.txt")) as f:
+            losses = [float(ln.rsplit(" ", 1)[1]) for ln in f]
+        with open(os.path.join(res, "losses_gradient_step.txt")) as f:
+            epochs = f.read().splitlines()
+        with open(os.path.join(args.save_path, "final_psnr.txt")) as f:
+            f.readline()
+            psnr = float(f.readline().split()[0])
+        with open(os.path.join(args.save_path_ip, "time_stats.txt")) as f:
+            tstat = f.readline().strip()
+        with open(os.path.join(args.save_path_ip, "memory_stats.txt")) as f:
+            mstat = f.readline().strip()
+    stats = args.train_stats
+    check(len(losses) == steps and all(map(math.isfinite, losses))
+          and losses == stats["losses"] and len(epochs) == GS_TRAIN_EPOCHS,
+          f"train_gs losses {losses} / {stats['losses']}, epochs {epochs}")
+    check(not [m for m in msgs if "random init" in m or "Checkpoint at" in m],
+          f"the eval half did not load the trained checkpoint: {msgs}")
+    check(math.isfinite(psnr), f"PSNR not finite: {psnr}")
+    expect = only(groupnorm_swish=gn_sites_at(TRAIN_DIM) * (
+        steps + GS_EVAL_ITERS))
+    check(launches == expect,
+          f"train_gs: launches {launches}, expected {expect}")
+    step_s = statistics.median(stats["step_seconds"][1:])
+    return {"batch": batch, "image": TRAIN_DIM, "steps": steps,
+            "seconds": seconds, "seconds_per_step": step_s,
+            "images_per_s": batch / step_s,
+            "step_seconds": stats["step_seconds"],
+            "max_memory_allocated": stats["max_memory_allocated"],
+            "losses": losses, "sigmas": stats["sigmas"],
+            "num_params": n_params, "launches": launches,
+            "final_psnr_rec": psnr, "eval_time_stats": tstat,
+            "eval_memory_stats": mstat}
+
+
+def train_gs_path(torch):
+    torch.cuda.empty_cache()
+    with phase("main_path/train_gs_fp32"):
+        r = train_gs_run(torch, GS_TRAIN_BATCH)
+    emit({"main_path": "train_gs_fp32", "batch_cut_from": TRAIN_BATCH, **r})
+    return r
+
+
+def save_diffunet_checkpoint(state, directory):
+    """``state`` as the JAX package's msgpack envelope, the file a
+    ``model diffusion`` run loads."""
+    import types
+
+    from pnpflow_tpu_torch.models.diffunet import DiffUNet
+    from pnpflow_tpu_torch.models.registry import (
+        model_fingerprint, save_params_file)
+    from pnpflow_tpu_torch.utils.jax_params import (
+        flax_from_diffunet_state_dict)
+
+    path = os.path.join(directory, "diffusion.msgpack")
+    args = types.SimpleNamespace(model="diffusion", dim_image=DIFF_DIM,
+                                 num_channels=3)
+    save_params_file(flax_from_diffunet_state_dict(state), path,
+                     fingerprint=model_fingerprint(DiffUNet(), args))
+    return path
+
+
+def pnp_diff_path(torch, ckpt):
+    """pnp_diff through the CLI: ``model diffusion dim_image 256`` (the
+    full-width DiffUNet, float32, real-scale random weights from the
+    msgpack ``ckpt``), 4 images: FFT deblurring at the default 100 steps,
+    and box inpainting under laplace noise (the 100-iteration L1 dual prox
+    a step) at PNP_DIFF_LAPLACE_STEPS.  No kernel of the repository runs."""
+    diff = ["model", "diffusion", "dim_image", str(DIFF_DIM)]
+    runs = (
+        ("pnp_diff_fp32", diff, PNP_DIFF_STEPS),
+        ("pnp_diff_inpainting_laplace_fp32",
+         diff + ["problem", "inpainting", "noise_type", "laplace",
+                 "max_iter", str(PNP_DIFF_LAPLACE_STEPS)],
+         PNP_DIFF_LAPLACE_STEPS),
+    )
+    out = {}
+    for name, extra, steps in runs:
+        torch.cuda.empty_cache()
+        with phase(f"main_path/{name}"):
+            r = cli_run(torch, extra, steps, ckpt, method="pnp_diff")
+        check(r["launches"] == only(),
+              f"{name}: launches {r['launches']}, expected none")
+        r["seconds_per_iteration"] = r["time_per_batch"] / steps
+        r["iterations"] = steps
+        emit({"main_path": name, **r})
+        out[name] = r
+    return out
 
 
 # --------------------------------------------------------------- 7. timing
@@ -1756,8 +2092,8 @@ def main():
         rect_state = randomized_ncsnpp_state(torch)
     sites = {"gn": gn_sites, "conv": conv_sites, "fir": firs}
     with phase("kernel_parity"):
-        err = kernel_parity(torch, dev, gn_sites, conv_sites, firs,
-                            train_sites)
+        err, gn_plans = kernel_parity(torch, dev, gn_sites, conv_sites,
+                                      firs, train_sites)
     with phase("kernel_parity/autodiff"):
         autodiff_kernel_parity(torch, dev, firs, gn_sites)
     with phase("model_parity"):
@@ -1766,15 +2102,25 @@ def main():
         training_parity(torch, dev)
     with phase("model_parity/autodiff"):
         autodiff_model_parity(torch, dev, rect_state)
+    with phase("model_parity/gs"):
+        gs_model_parity(torch, dev)
+    diff_state = randomized_diffunet_state(torch, 21)
+    with phase("model_parity/diffunet"):
+        diffunet_parity(torch, dev, diff_state)
     with tempfile.TemporaryDirectory() as tmp:
         rect_ckpt = os.path.join(tmp, "rectified.pt")
         # a RectifiedFlow-layout checkpoint: {model, ema, optimizer, step}
         torch.save({"model": {"module." + k: v for k, v in rect_state.items()},
                     "ema": None, "optimizer": {}, "step": 0}, rect_ckpt)
+        diff_ckpt = save_diffunet_checkpoint(diff_state, tmp)
+        del diff_state
         launches, runs = main_path(torch, rect_ckpt)
         train = train_path(torch)
         runs["train_fp32"] = train
         runs.update(differentiated_path(torch, rect_ckpt))
+        runs.update(pnp_gs_path(torch))
+        runs["train_gs_fp32"] = train_gs_path(torch)
+        runs.update(pnp_diff_path(torch, diff_ckpt))
     launches["groupnorm_swish"] += train["launches"]["groupnorm_swish"]
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
@@ -1786,6 +2132,8 @@ def main():
     with phase("profiles"):
         adjoint = profiles(torch, dev, gn_sites, firs, rect_state,
                            train["batch"])
+    next(k for k in kernels if k["name"] == "groupnorm_swish")[
+        "plans_under_gradient"] = gn_plans
     fir_row = next(k for k in kernels if k["name"] == "upfirdn2d")
     fir_row["adjoint_device_ms_per_vjp"] = adjoint["ms"]
     fir_row["adjoint_bound_ms"] = adjoint["bound_ms"]

@@ -1,18 +1,24 @@
 """CLI entry point (port of the repository's ``main.py``).
 
-``python -m pnpflow_tpu_torch --opts key value ...`` trains the flow-matching
-prior (``train True``, ``model ot`` or ``indep``) and solves an inverse
-problem (``eval True``) with the reference's 3-tier config, ``--opts``
-overrides and ``results/{dataset}/{model}/{problem}/{method}/{split}``
-layout, in that order, as the JAX CLI does: a run with both restores with
-the ``model_final.msgpack`` it has just written.  It runs on ``cuda`` unless
-``--opts device cpu`` is given.  Training is float32 with TF32 off;
-``--opts model rectified`` restores with the NCSN++ (its FIR resampling
-through the ``upfirdn2d`` kernel); ``--opts bf16 True`` restores in
-bfloat16, and the default float32 restoration turns TF32 off.
+``python -m pnpflow_tpu_torch --opts key value ...`` trains a prior
+(``train True``: the flow-matching velocity field for ``model ot`` or
+``indep``, the gradient-step denoiser for ``model gradient_step``) and
+solves an inverse problem (``eval True``) with any of the six methods
+(``pnp_flow``, ``ot_ode``, ``flow_priors``, ``d_flow``, ``pnp_gs``,
+``pnp_diff``), with the reference's 3-tier config, ``--opts`` overrides and
+``results/{dataset}/{model}/{problem}/{method}/{split}`` layout, in that
+order, as the JAX CLI does: a run with both restores with the
+``model_final.msgpack`` it has just written.  It runs on ``cuda`` unless
+``--opts device cpu`` is given.  Training is float32 with TF32 off, with
+``fused_norm True`` by default; ``method pnp_gs`` restores with ``model
+gradient_step`` and ``fused_norm True`` by default (its denoiser is a VJP of
+the U-Net); ``--opts model rectified`` restores with the NCSN++ (its FIR
+resampling through the ``upfirdn2d`` kernel) and ``model diffusion`` with
+the DiffUNet (``method pnp_diff``, float32 always); ``--opts bf16 True``
+restores in bfloat16, and the default float32 restoration turns TF32 off.
 
-Not ported yet: ``compute_metrics True``, the gradient-step denoiser's
-training and the ``grain`` data backend; each raises.
+Not ported yet: ``compute_metrics True`` and the ``grain`` data backend;
+each raises.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from pnpflow_tpu_torch.device import resolve_device, set_fp32_parity_mode
 from pnpflow_tpu_torch.models.registry import build_model_bundle
 from pnpflow_tpu_torch.ops.degradations import make_degradation
 from pnpflow_tpu_torch.solvers.factory import build_solver
+from pnpflow_tpu_torch.training.denoiser import GradientStepTrainer
 from pnpflow_tpu_torch.training.flow_matching import FlowMatchingTrainer
 from pnpflow_tpu_torch.utils.config import load_full_config
 
@@ -87,14 +94,11 @@ def main(argv=None):
 
 
 def train(args, device):
-    """Train the velocity field of ``model ot|indep`` in float32 on
-    ``device``; ``args.train_stats`` gets what the trainer measured."""
+    """Train the velocity field of ``model ot|indep``, or the gradient-step
+    denoiser of ``model gradient_step``, in float32 on ``device``;
+    ``args.train_stats`` gets what the trainer measured."""
     args.batch_size = args.batch_size_train
-    if args.model == "gradient_step":
-        raise NotImplementedError(
-            "gradient-step denoiser training is not ported yet (ROADMAP "
-            "queue 1, item 9)")
-    if args.model not in ("ot", "indep"):
+    if args.model not in ("ot", "indep", "gradient_step"):
         raise ValueError("Model not implemented yet: choose 'ot' or "
                          "'gradient_step'")
     if getattr(args, "data_backend", "thread") != "thread":
@@ -108,7 +112,8 @@ def train(args, device):
         root=os.path.join(args.root, "data"), dim_image=args.dim_image,
         num_channels=args.num_channels,
     ).load_data()
-    trainer = FlowMatchingTrainer(args, device=device)
+    trainer = (GradientStepTrainer if args.model == "gradient_step"
+               else FlowMatchingTrainer)(args, device=device)
     trainer.train(data_loaders)
     args.train_stats = trainer.stats
     print("Training done!")

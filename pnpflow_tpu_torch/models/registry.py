@@ -1,24 +1,29 @@
 """Model factory + checkpoint resolution (port of
 ``pnpflow_tpu/models/registry.py``).
 
-``define_model(args)`` builds the velocity U-Net for the ``ot`` / ``indep`` /
-``gradient_step`` models and the NCSN++ for ``rectified``;
-``build_model_bundle(args)`` also resolves its weights, in the JAX order:
-a native ``model_final.msgpack`` (written by the JAX package), then a
-reference torch ``model_final.pt``, else a seeded random init with a
-warning.
+``define_model(args)`` builds the velocity U-Net for the ``ot`` / ``indep``
+models and for ``gradient_step`` (the gradient-step denoiser's network,
+evaluated at t = sigma), the NCSN++ for ``rectified`` and the guided-diffusion
+DiffUNet for ``diffusion`` (float32 whatever the dtype, as in JAX; it takes
+the raw integer timestep, with no adapter); ``build_model_bundle(args)``
+also resolves its weights, in the JAX order: a native ``model_final.msgpack``
+(written by the JAX package or the port's trainers), then a reference torch
+``model_final.pt``, else a seeded random init with a warning.  A ``.pt``
+under ``model diffusion`` raises: JAX converts any ``.pt`` as a U-Net, which
+gives the DiffUNet a wrong tree.
 
 The GroupNorm path of the U-Net comes from ``--opts fused_norm ...``.  For
 restoration it defaults to ``"conv"`` here (the JAX package defaults to
 ``False``): ``False`` runs no kernel of this repository on the card, while
 ``"conv"`` sends every ResidualBlock through the fused ``conv3x3_gn``
 kernel.  ``"conv"`` is forward-only, so a model built for training
-(``define_model(args, train=True)``) or for a method that differentiates
-through the model (``ot_ode``, ``flow_priors``, ``d_flow``) defaults to
-``True``, the ``groupnorm_swish`` kernel with its autograd backward and
-forward-mode rule, and refuses ``"conv"``.  A ``train True eval True``
-pnp_flow run without ``fused_norm`` therefore trains with ``True`` and
-restores with ``"conv"``.
+(``define_model(args, train=True)``, both trainers) or for a method that
+differentiates through the model (``ot_ode``, ``flow_priors``, ``d_flow``,
+and ``pnp_gs``, whose denoiser is a VJP of the U-Net) defaults to ``True``,
+the ``groupnorm_swish`` kernel with its autograd backward and forward-mode
+rule, and refuses ``"conv"``.  A ``train True eval True`` pnp_flow run
+without ``fused_norm`` therefore trains with ``True`` and restores with
+``"conv"``.
 
 The msgpack reader and writer speak flax's format with the ``msgpack``
 module alone: arrays are ext type 1 and numpy scalars ext type 3, each
@@ -38,18 +43,21 @@ import torch
 import torch.nn as nn
 
 from pnpflow_tpu_torch.device import resolve_device
+from pnpflow_tpu_torch.models.diffunet import (
+    DiffUNet, init_diffunet, make_diffunet)
 from pnpflow_tpu_torch.models.ncsnpp import NCSNpp, init_ncsnpp, make_ncsnpp
 from pnpflow_tpu_torch.models.unet import VelocityUNet, init_weights
 from pnpflow_tpu_torch.solvers.base import ModelBundle
 from pnpflow_tpu_torch.utils.jax_params import (
-    ncsnpp_state_dict_from_flax, state_dict_from_flax)
+    diffunet_state_dict_from_flax, ncsnpp_state_dict_from_flax,
+    state_dict_from_flax)
 
 ARCH_KEY = "__pnpflow_arch__"
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 MAX_LEAF_BYTES = 2 ** 30    # flax chunks larger arrays; the port does not
 # the solvers that differentiate through the velocity model
-DIFFERENTIATED_METHODS = ("ot_ode", "flow_priors", "d_flow")
+DIFFERENTIATED_METHODS = ("ot_ode", "flow_priors", "d_flow", "pnp_gs")
 
 
 def define_model(args, dtype=torch.float32, train: bool = False) -> nn.Module:
@@ -61,10 +69,13 @@ def define_model(args, dtype=torch.float32, train: bool = False) -> nn.Module:
             raise NotImplementedError(
                 "NCSN++ training is not ported yet (ROADMAP queue 1, item 14)")
         return make_ncsnpp(args, dtype=dtype)
+    if args.model == "diffusion":
+        if train:
+            raise ValueError("the DiffUNet has no trainer: train 'ot', "
+                             "'indep' or 'gradient_step'")
+        return make_diffunet(args)
     if args.model not in ("ot", "indep", "gradient_step"):
-        raise NotImplementedError(
-            f"model {args.model!r} is not ported yet (ROADMAP queue 1, "
-            "items 10-14)")
+        raise ValueError("Unknown model: {}".format(args.model))
     if args.dim_image % 8 == 0:
         ch_mult, attn = (1, 2, 4, 8), (16, 8)
     else:
@@ -222,6 +233,8 @@ def checked_state_dict(module, sd: dict) -> dict:
 def _state_dict_from_tree(module, tree) -> dict:
     if isinstance(module, NCSNpp):
         return ncsnpp_state_dict_from_flax(tree, module.sigmas)
+    if isinstance(module, DiffUNet):
+        return diffunet_state_dict_from_flax(tree)
     return state_dict_from_flax(tree)
 
 
@@ -250,6 +263,8 @@ def _init(module, args):
     seed = int(getattr(args, "seed", 0) or 0)
     if isinstance(module, NCSNpp):
         return init_ncsnpp(module, seed=seed)
+    if isinstance(module, DiffUNet):
+        return init_diffunet(module, seed=seed)
     return init_weights(module, seed=seed)
 
 
@@ -284,6 +299,13 @@ def load_params(module, args, require: bool = False):
                 module.load_state_dict(sd)
                 return module
     if os.path.exists(paths["torch"]):
+        if isinstance(module, DiffUNet):
+            # JAX converts any .pt with the U-Net's key map, which gives
+            # the DiffUNet a wrong tree; the port refuses instead
+            raise ValueError(
+                f"{paths['torch']}: a torch checkpoint cannot be read for "
+                "model diffusion; convert it to the JAX DiffUNet's tree and "
+                f"save it as {paths['msgpack']}")
         module.load_state_dict(_torch_state_dict(paths["torch"]))
         return module
     if require:

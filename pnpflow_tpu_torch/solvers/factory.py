@@ -2,8 +2,6 @@
 
 from __future__ import annotations
 
-_NOT_PORTED = ("pnp_gs", "pnp_diff")
-
 
 def build_solver(bundle, args):
     if args.method == "pnp_flow":
@@ -22,8 +20,12 @@ def build_solver(bundle, args):
         from pnpflow_tpu_torch.solvers.flow_priors import FlowPriors
 
         return FlowPriors(bundle, args)
-    if args.method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method {args.method!r} is not ported yet (ROADMAP queue 1, "
-            "items 9-10)")
+    if args.method == "pnp_gs":
+        from pnpflow_tpu_torch.solvers.pnp_gs import ProxPnP
+
+        return ProxPnP(bundle, args)
+    if args.method == "pnp_diff":
+        from pnpflow_tpu_torch.solvers.pnp_diff import PnPDiff
+
+        return PnPDiff(bundle, args)
     raise ValueError("The method you entered does not exist")

@@ -1,1 +1,1 @@
-"""Trainers: flow matching."""
+"""Trainers: flow matching and the gradient-step denoiser."""

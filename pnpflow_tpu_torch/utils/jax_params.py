@@ -11,6 +11,9 @@ reference torch layout that the port's modules use.
 own copy of ``convert_unet_state_dict``'s mapping), and
 :func:`flax_adam_state` / :func:`adam_state_dict_from_flax` carry
 ``torch.optim.Adam``'s moments to optax's ``adam`` state and back.
+:func:`diffunet_state_dict_from_flax` and :func:`flax_from_diffunet_state_dict`
+carry the DiffUNet both ways: its torch names are the flax module paths
+joined by dots, so only the leaves change.
 
   flax Conv kernel (kH, kW, I, O) -> torch Conv2d weight (O, I, kH, kW)
   flax Dense kernel (in, out)     -> torch Linear weight (out, in)
@@ -138,6 +141,42 @@ def ncsnpp_state_dict_from_flax(params, sigmas=None) -> dict:
     if sigmas is not None:
         out["sigmas"] = torch.as_tensor(sigmas, dtype=torch.float32).cpu()
     return out
+
+
+def diffunet_state_dict_from_flax(params) -> dict:
+    """flax DiffUNet ``{"params": tree}`` (or the bare tree) -> the port's
+    ``state_dict``: ``down_0_res_0/in_conv/kernel`` becomes
+    ``down_0_res_0.in_conv.weight`` (OIHW), a Dense ``(in, out)`` kernel a
+    Linear ``(out, in)`` weight, a GroupNorm ``scale`` its weight."""
+    tree = params.get("params", params)
+    out = {}
+
+    def walk(node, path):
+        for name, child in node.items():
+            if isinstance(child, dict):
+                walk(child, path + (name,))
+                continue
+            if not path:
+                raise KeyError(f"DiffUNet leaf {name!r} outside a module")
+            key, arr = _leaf(name, child)
+            out[".".join(path + (key,))] = torch.from_numpy(np.array(arr))
+
+    walk(tree, ())
+    return out
+
+
+def flax_from_diffunet_state_dict(sd) -> dict:
+    """The inverse of :func:`diffunet_state_dict_from_flax`: the JAX
+    DiffUNet's ``{"params": tree}`` of C-contiguous float32 numpy arrays."""
+    tree: dict = {}
+    for key, value in sd.items():
+        prefix, leaf = key.rsplit(".", 1)
+        name, arr = _flax_leaf(leaf, value.detach().float().cpu().numpy())
+        node = tree
+        for p in prefix.split("."):
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(arr)
+    return {"params": tree}
 
 
 # ---------------------------------------------------------- port -> flax

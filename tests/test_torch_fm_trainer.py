@@ -291,10 +291,6 @@ def test_refusals(tmp_path, monkeypatch):
         conv.train_step(state, x, x, torch.Generator())
     assert state.step == 0 and not state.optimizer.state
     out = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        main(["--opts", "dataset", "synthetic", "model", "gradient_step",
-              "train", "True", "eval", "False", "device", "cpu",
-              "output_root", out])
     with pytest.raises(NotImplementedError, match="grain"):
         main(["--opts", "dataset", "synthetic", "train", "True",
               "data_backend", "grain", "eval", "False", "device", "cpu",

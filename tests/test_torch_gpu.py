@@ -570,3 +570,128 @@ def test_gn_kernel_jvp_rule_at_a_flagship_site(cuda):
     assert float((y - want_y).abs().max()) <= 1e-4
     assert float((got - want).abs().max()) <= 1e-4 * float(
         want.abs().max())
+
+
+# ------------------------------------- gradient-step denoiser and DiffPIR
+def test_gs_denoiser_and_loss_gradients_through_the_gn_kernel(cuda):
+    """The gradient-step denoiser on the flagship at 64^2, 4 images:
+    ``calculate_grad``'s Dg with ``fused_norm`` True (the kernel forward,
+    the VJP through its plain backward) against False within 1e-4 of
+    max|Dg|, and the GS loss's parameter gradient (second order through
+    the GroupNorm rules) within 1e-4 of each tensor's max, the noise rule
+    as above.  The kernel launches once per site: the loss's backward
+    reuses the forward."""
+    from pnpflow_tpu_torch.training.denoiser import (
+        calculate_grad, denoiser_forward)
+
+    sd = _randomized(VelocityUNet(**FLAGSHIP_64), 4).state_dict()
+    g = torch.Generator(device=cuda).manual_seed(7)
+    y = 0.5 * torch.randn(4, 64, 64, 3, generator=g, device=cuda)
+    x = y + 0.1 * torch.randn(y.shape, generator=g, device=cuda)
+    sv = torch.full((4,), 0.1, device=cuda)
+    out = {}
+    for fused in (False, True):
+        m = VelocityUNet(**FLAGSHIP_64, fused_norm=fused)
+        m.load_state_dict(sd)
+        m.to(cuda)
+        before = groupnorm_swish_fwd.launches
+        with torch.no_grad():
+            dg, _ = calculate_grad(m, x, sv)
+        mid = groupnorm_swish_fwd.launches
+        x_hat, _ = denoiser_forward(m, x, sv, create_graph=True)
+        loss = ((x_hat - y) ** 2).reshape(4, -1).mean(dim=1).mean()
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        torch.cuda.synchronize()
+        out[fused] = (dg, float(loss.detach()),
+                      dict(zip([n for n, _ in m.named_parameters()], grads)),
+                      (mid - before, groupnorm_swish_fwd.launches - mid))
+    (dgw, lw, gw, nw), (dgg, lg, gg, ng) = out[False], out[True]
+    sites = sum(isinstance(mod, torch.nn.GroupNorm)
+                for mod in VelocityUNet(**FLAGSHIP_64).modules())
+    assert nw == (0, 0) and ng == (sites, sites)
+    assert float((dgg - dgw).abs().max()) <= 1e-4 * float(dgw.abs().max())
+    assert abs(lg - lw) <= 1e-5 * abs(lw)
+    floor = NOISE_FLOOR * max(float(v.abs().max()) for v in gw.values())
+    for n, w in gw.items():
+        scale = float(w.abs().max())
+        if scale < floor:
+            assert float(gg[n].abs().max()) < floor, n
+            continue
+        assert float((gg[n] - w).abs().max()) <= 1e-4 * scale, n
+
+
+def test_pnp_gs_backtracking_on_card_matches_cpu(cuda):
+    """Three hqs deblurring iterations of pnp_gs (the backtracking decided
+    on the device) on the card against the CPU, same small U-Net: within
+    1e-4, the same alpha."""
+    from pnpflow_tpu_torch.ops.degradations import GaussianDeblurring
+    from pnpflow_tpu_torch.solvers.pnp_gs import make_pnp_gs_solver
+
+    sd = _randomized(VelocityUNet(**SMALL_32), 5).state_dict()
+    y = 0.5 * torch.randn(2, 32, 32, 3, generator=torch.Generator()
+                          .manual_seed(8))
+    res = {}
+    for dev in ("cpu", cuda):
+        m = VelocityUNet(**SMALL_32, fused_norm=True)
+        m.load_state_dict(sd)
+        m.to(dev).requires_grad_(False)
+        op = GaussianDeblurring(1.0, 9, 3, 32, device=dev)
+        solve = make_pnp_gs_solver(
+            m, op, problem="gaussian_deblurring_FFT", algo="hqs",
+            noise_type="gaussian", sigma_noise=0.05, lr_pnp=1.0,
+            sigma_factor=1.0, max_iter=30)
+        with torch.no_grad():
+            x, a = solve(y.to(dev), op.H_adj(y.to(dev)),
+                         torch.tensor(2.0, device=dev), 0, 3)
+        res[str(dev)] = (x.cpu(), float(a))
+    (xc, ac), (xg, ag) = res["cpu"], res[str(cuda)]
+    assert ac == ag
+    assert float((xg - xc).abs().max()) <= 1e-4 * max(
+        1.0, float(xc.abs().max()))
+
+
+DIFF_MID = dict(in_channels=3, out_channels=6, model_channels=64,
+                channel_mult=(1, 2, 2), num_res_blocks=1,
+                attention_ds=(2, 4), num_head_channels=32)
+
+
+def _diffunet_state(seed):
+    from pnpflow_tpu_torch.models.diffunet import (
+        DiffUNet, init_diffunet_real_scale)
+
+    return init_diffunet_real_scale(DiffUNet(**DIFF_MID), seed).state_dict()
+
+
+def test_diffunet_and_diffpir_on_card_match_cpu(cuda):
+    """A DiffUNet with every parameter at a real scale (64 channels, mult
+    1,2,2, attention at ds 2 and 4) at 64^2: the forward within 1e-4 of
+    max|out|, and 5 DiffPIR inpainting steps from the same noise within
+    1e-4, card against CPU."""
+    from pnpflow_tpu_torch.models.diffunet import DiffUNet
+    from pnpflow_tpu_torch.ops.degradations import BoxInpainting
+    from pnpflow_tpu_torch.solvers import pnp_diff
+
+    sd = _diffunet_state(6)
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 64, 64, 3, generator=g)
+    t = torch.tensor([40.0, 900.0])
+    y01 = torch.rand(2, 64, 64, 3, generator=g)
+    noise = [torch.randn(2, 64, 64, 3, generator=g) for _ in range(6)]
+    res = {}
+    for dev in ("cpu", cuda):
+        m = DiffUNet(**DIFF_MID)
+        m.load_state_dict(sd)
+        m.to(dev).eval()
+        op = BoxInpainting(10, 64, device=dev)
+        solve = pnp_diff.make_diffpir_solver(
+            m, pnp_diff.make_prox("inpainting", op, 0.05, "gaussian"),
+            op.H_adj, lmbda=7.0, zeta=0.3, max_iter=5, sigma_noise=0.05)
+        with torch.inference_mode():
+            res[str(dev)] = (m(x.to(dev), t.to(dev)).cpu(),
+                             solve(op.H(y01.to(dev)),
+                                   noise_seq=noise).cpu())
+    for i in range(2):
+        want, got = res["cpu"][i], res[str(cuda)][i]
+        scale = float(want.abs().max())
+        assert scale > 0.1
+        assert float((got - want).abs().max()) <= 1e-4 * scale
