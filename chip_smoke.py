@@ -41,6 +41,9 @@ failure (nothing is caught and passed over) and prints its seconds:
    gradient, second order through the GroupNorm rules, True against
    False), and the full-width DiffUNet at 256x256 and 2 images on the card
    against the CPU, with its time and peak memory per 4-image forward;
+   then the metric networks: the FID InceptionV3 (synthetic weights,
+   written by the port's converter) at 2 images and LPIPS (seeded AlexNet)
+   at 4, at 64x64 and 256x256, the card against the CPU;
 6. main path: the port's CLI, pnp_flow on synthetic images -- the U-Net at
    64x64 (FFT deblur; "conv" fp32 at 100 steps, "conv" bf16, True and "bm"
    at 10) and the rectified NCSN++ at 256x256 (FFT deblur fp32 at 30 steps,
@@ -50,8 +53,9 @@ failure (nothing is caught and passed over) and prints its seconds:
    for 6 steps, and restored from the checkpoint it wrote (FFT deblur, 10
    steps); then the differentiated methods, fp32, FFT deblur, 4 images:
    the U-Net at 64x64 with ot_ode at its default (80 VJP steps),
-   flow_priors at its default (N 100, K 1), d_flow with max_iter cut from
-   20 to 1 (20 LBFGS iterations; the default takes about 20 times as long)
+   flow_priors at N 50 (cut from the default 100 to make room for the
+   metric phases; K 1), d_flow with max_iter cut from 20 to 1 and its LBFGS
+   iterations from 20 to 10 (the default takes about 40 times as long)
    and ot_ode on bicubic super-resolution (GMRES, 10 steps), and the
    NCSN++ 256^2 with ot_ode at 5 steps (4 VJPs) and flow_priors at N 2;
    then pnp_gs with ``model gradient_step`` (the flagship at 64x64, 4
@@ -64,7 +68,19 @@ failure (nothing is caught and passed over) and prints its seconds:
    fits the card's 80 GB), then 10 pgd iterations from the checkpoint it
    wrote; pnp_diff with ``model diffusion`` (the full-width
    DiffUNet at 256x256, 4 images): FFT deblurring at the default 100 steps
-   and laplace-noise inpainting (the L1 dual prox) at 10;
+   and laplace-noise inpainting (the L1 dual prox) at 10; every CLI run
+   with ``lpips_alex.npz`` in place, so it reports LPIPS; then the metric
+   stack: ``compute_metrics True`` with the flagship at 64x64 (1000 samples,
+   cut from the protocol's 5000, by Euler in 10 steps, on the Inception
+   features, then 10 PnP steps) and one dopri5 chunk of 50 samples; the FM
+   trainer's FID curve on the checkpoint the training run wrote (n 1000,
+   twice, one train step apart), each compute_metrics line held against
+   the same statistics recomputed on the CPU from the features it cached;
+   ``remat`` False and True on each method that differentiates the model
+   (U-Net 64x64 ot_ode, d_flow and pnp_gs, NCSN++ 256^2 flow_priors at
+   N 2: equal results, both peaks); and the serving
+   API (``Restorer``, pnp_flow at 64x64, 4 images, 100 steps: warmup and
+   two seeded restores, bit for bit);
    every launch counter set to 0 before each run and read after;
 7. timing: CUDA-event times of each kernel, its plain version and the
    PyTorch library call, per forward at the bench shapes (U-Net: 64x64, 64
@@ -132,8 +148,10 @@ NOISE_FLOOR = 1e-6      # of the largest gradient: float32 rounding noise
 GN_SITES_64 = 136       # groupnorm_swish launches per 64x64 flagship forward
 DIFF_BATCH = 4          # batch_size_ip of ot_ode / flow_priors / d_flow
 OT_ODE_STEPS = 100      # steps_ode, the default: from start_time 0.2, 80 steps
-FP_N = 100              # flow_priors N, the default (K 1)
-D_FLOW_MAX_ITER = 1     # of the default 20 LBFGS steps (20 iterations each)
+FP_N = 50               # flow_priors N, cut from the default 100 (K 1)
+D_FLOW_MAX_ITER = 1     # of the default 20 LBFGS steps
+D_FLOW_LBFGS_ITER = 10  # LBFGS iterations a step, cut from the default 20
+# (both cuts keep the script near 10 minutes beside the metric phases)
 BICUBIC_STEPS = 10      # ot_ode steps_ode for bicubic SR (GMRES): 8 steps
 RECT_OT_STEPS = 5       # ot_ode on the NCSN++ 256^2: 4 VJP steps
 RECT_FP_N = 2           # flow_priors on the NCSN++ 256^2: 2 outer steps
@@ -149,6 +167,20 @@ DIFF_DIM = 256          # the DiffUNet's geometry (DiffPIR ffhq_10m)
 DIFFUNET_PARITY_BATCH = 2
 PNP_DIFF_STEPS = 100    # pnp_diff max_iter, the default
 PNP_DIFF_LAPLACE_STEPS = 10
+METRIC_N = 1000         # compute_metrics and FID-curve samples, cut from
+                        # the protocol's 5000 to keep the script near 10 min
+METRIC_STEPS = 10       # Euler steps of the compute_metrics run
+METRIC_BATCH = 50       # the sampling and Inception sub-batch
+INCEPTION_TOL = 1e-4    # pool3 card vs CPU, of max|pool3|; probs 1e-5
+LPIPS_TOL = 1e-5        # LPIPS card vs CPU, relative
+METRIC_DIMS = (64, 256)
+SERVE_STEPS = 100       # steps_pnp of the serving run, the default
+REMAT_OT_STEPS = 10     # remat False / True: ot_ode steps_ode (8 VJPs),
+REMAT_LBFGS_ITER = 2    # d_flow's LBFGS iterations in its one step,
+REMAT_GS_ITERS = 3      # pnp_gs iterations
+METRIC_REL_TOL = 1e-4   # metrics.txt (card) against the CPU, relative
+# the synthetic Inception and seeded LPIPS weight files, written once
+METRIC_WEIGHTS = {}
 
 
 def fail(msg):
@@ -869,18 +901,83 @@ def method_keys(method):
         HERE, "config", "method_config", f"{method}.yaml")))
 
 
-def cli_run(torch, extra, steps, ckpt=None, method="pnp_flow"):
+def link_metric_weights(out, inception=False, lpips=True):
+    """``lpips_alex.npz`` and ``inception_fid.npz``, each if asked, under
+    out/model/."""
+    os.makedirs(os.path.join(out, "model"), exist_ok=True)
+    for name, want in (("inception_fid.npz", inception),
+                       ("lpips_alex.npz", lpips)):
+        if want:
+            os.symlink(METRIC_WEIGHTS[name], os.path.join(out, "model", name))
+
+
+def metrics_line(root, model="ot"):
+    """The last metrics.txt line of a compute_metrics run, token by key."""
+    with open(os.path.join(root, "results", "synthetic", model,
+                           "metrics.txt")) as f:
+        tok = f.read().splitlines()[-1].split()
+    return dict(zip(tok[0::2], tok[1::2]))
+
+
+def metrics_against_cpu(root, line):
+    """FID, KID, KID_std, Vendi, SW, IS and IS_std of a ``compute_metrics``
+    run, recomputed on the CPU by the same functions from the features the
+    run cached (the test split's and every generated chunk's, with their
+    probabilities): each metrics.txt value, which the card computed, must
+    lie within METRIC_REL_TOL of its CPU value.  Returns the relative
+    errors."""
+    import glob
+
+    import numpy as np
+
+    from pnpflow_tpu_torch.metrics import generative as gen
+
+    n = int(line["n"])
+    cache = os.path.join(root, "results", "synthetic", "ot", "metric_cache")
+    (tpath,) = glob.glob(os.path.join(cache, "test_*", f"feats_n{n}.npz"))
+    (gdir,) = glob.glob(os.path.join(cache, "s*"))
+    feats, probs = [], []
+    for chunk in sorted(glob.glob(os.path.join(gdir, "chunk_*.npz"))):
+        with np.load(chunk) as f:
+            feats.append(f["feats"])
+            probs.append(f["probs"])
+    with np.load(tpath) as f:
+        test = f["feats"]
+    fgen, pgen = np.concatenate(feats)[:n], np.concatenate(probs)[:n]
+    kid, kid_std = gen.kid_from_features(test, fgen, device="cpu")
+    is_mean, is_std = gen.inception_score(pgen)
+    cpu = {"FID": gen.fid_from_features(test, fgen), "KID": kid,
+           "KID_std": kid_std,
+           "Vendi": gen.vendi_score(fgen[:gen.VENDI_MAX], device="cpu"),
+           "SW": gen.sliced_wasserstein(fgen, test, device="cpu"),
+           "IS": is_mean, "IS_std": is_std}
+    err = {k: abs(float(line[k]) - v) / abs(v) if v else
+           abs(float(line[k])) for k, v in cpu.items()}
+    emit({"metrics_against_cpu": {"n": n, "cpu": cpu, "rel_err": err}})
+    check(all(e <= METRIC_REL_TOL for e in err.values()),
+          f"metrics.txt against the CPU: relative errors {err}")
+    return err
+
+
+def cli_run(torch, extra, steps, ckpt=None, method="pnp_flow",
+            metrics=False, lpips=True):
     """One CLI run on synthetic images, FFT deblurring unless ``extra``
     says otherwise, batch 4 (pnp_flow: x 5 MC samples, ``steps`` PnP
-    steps); checks the reference file set and a finite PSNR and returns the
-    launches, the time per batch and the peak memory it wrote.  ``ckpt``,
-    a ``.pt`` or ``.msgpack`` file, is linked in as the checkpoint of the
-    model that ``extra`` names."""
+    steps), with the seeded ``lpips_alex.npz`` in place; checks the
+    reference file set (LPIPS's included) and a finite PSNR and LPIPS and
+    returns the launches, the time per batch and the peak memory it wrote.
+    ``ckpt``, a ``.pt`` or ``.msgpack`` file, is linked in as the
+    checkpoint of the model that ``extra`` names.  ``metrics`` also links
+    ``inception_fid.npz`` and returns the ``metrics.txt`` line of a
+    ``compute_metrics True`` run, its seconds by part and the relative
+    errors of its values against the CPU (``metrics_against_cpu``);
+    ``lpips=False`` leaves LPIPS out."""
     import ast
 
     from pnpflow_tpu_torch.main import main
 
     with tempfile.TemporaryDirectory() as out:
+        link_metric_weights(out, inception=metrics, lpips=lpips)
         if ckpt is not None:
             model = extra[extra.index("model") + 1]
             ck = os.path.join(out, "model", "synthetic", model)
@@ -906,6 +1003,8 @@ def cli_run(torch, extra, steps, ckpt=None, method="pnp_flow"):
                   "ssim_rec_average.txt", "time_stats.txt",
                   "time_average.txt", "memory_stats.txt",
                   "max_memory_average.txt",
+                  *(("lpips_rec_batch0.txt", "lpips_noisy_batch0.txt")
+                    if lpips else ()),
                   f"{args.problem}_{method}_batch0_final.png"):
             check(os.path.exists(os.path.join(ip, f)), f"missing {f}")
         with open(os.path.join(args.save_path, "final_psnr.txt")) as f:
@@ -915,13 +1014,27 @@ def cli_run(torch, extra, steps, ckpt=None, method="pnp_flow"):
         psnr = float(row[0])
         check(psnr == psnr and abs(psnr) != float("inf"),
               f"PSNR not finite: {psnr}")
+        row_lp = [float("nan")]
+        if lpips:
+            with open(os.path.join(args.save_path, "final_lpips.txt")) as f:
+                header, row_lp = f.readline().split(), f.readline().split()
+            check(header[:2] == ["lpips_rec", "lpips_noisy"]
+                  and all(math.isfinite(float(v)) for v in row_lp[:2]),
+                  f"final_lpips.txt: {header} {row_lp}")
+        line = metrics_line(out) if metrics else None
+        cpu_err = metrics_against_cpu(out, line) if metrics else None
+        metric_seconds = args.metrics["seconds"] if metrics else None
         with open(os.path.join(ip, "time_stats.txt")) as f:
             tstat = ast.literal_eval(f.readline().strip())
         with open(os.path.join(ip, "memory_stats.txt")) as f:
             mstat = ast.literal_eval(f.readline().strip())
     return {"method": method, "opts": extra, "steps": steps,
             "seconds": seconds, "final_psnr_rec": psnr,
-            "final_psnr_noisy": float(row[1]), "launches": launches,
+            "final_psnr_noisy": float(row[1]),
+            "final_lpips_rec": float(row_lp[0]), "metrics_line": line,
+            "metrics_rel_err_against_cpu": cpu_err,
+            "metric_seconds": metric_seconds,
+            "launches": launches,
             "fir_paths": paths, "fir_roles": roles,
             "time_per_batch": tstat["time_per_batch"],
             "max_memory_allocated": mstat["max_allocated"]}
@@ -971,9 +1084,10 @@ def differentiated_path(torch, rect_ckpt):
     """ot_ode, flow_priors and d_flow through the CLI, fp32, FFT deblurring,
     4 images: the flagship U-Net at 64x64 (``fused_norm`` True, these
     methods' default) with ot_ode at its default (100 steps from
-    start_time 0.2: 80 VJP steps), flow_priors at its default (N 100, K 1),
-    d_flow with max_iter cut from 20 to D_FLOW_MAX_ITER (each of its 20
-    LBFGS iterations takes 10 forwards, 10 recomputed, and a backward), and
+    start_time 0.2: 80 VJP steps), flow_priors at N = FP_N (K 1),
+    d_flow with max_iter cut from 20 to D_FLOW_MAX_ITER and its LBFGS
+    iterations from 20 to D_FLOW_LBFGS_ITER (each takes 10 forwards, 10
+    recomputed, and a backward), and
     ot_ode on bicubic super-resolution (GMRES) at 10 steps; then the
     NCSN++ 256^2 with ot_ode at RECT_OT_STEPS steps and flow_priors at
     N = RECT_FP_N.  Launches: groupnorm_swish once per site in every
@@ -992,9 +1106,10 @@ def differentiated_path(torch, rect_ckpt):
     runs = (
         ("ot_ode_fp32", "ot_ode", [], ot_iters,
          only(groupnorm_swish=gn * ot_iters), None),
-        ("flow_priors_fp32", "flow_priors", [], FP_N,
+        ("flow_priors_fp32", "flow_priors", ["N", str(FP_N)], FP_N,
          only(groupnorm_swish=2 * gn * FP_N), None),
-        ("d_flow_fp32", "d_flow", ["max_iter", str(D_FLOW_MAX_ITER)],
+        ("d_flow_fp32", "d_flow", ["max_iter", str(D_FLOW_MAX_ITER),
+                                   "LBFGS_iter", str(D_FLOW_LBFGS_ITER)],
          D_FLOW_MAX_ITER, None, None),
         ("ot_ode_sr_bicubic_fp32", "ot_ode",
          ["problem", "superresolution_bicubic", "steps_ode",
@@ -1089,7 +1204,10 @@ def train_run(torch, batch):
             psnr = float(f.readline().split()[0])
         with open(os.path.join(args.save_path_ip, "time_stats.txt")) as f:
             tstat = f.readline().strip()
-    stats = args.train_stats
+        stats = args.train_stats
+        with phase("main_path/train_fp32/fid_curve"):
+            curve = fid_curve(torch, args, out, steps)
+        emit({"main_path": "fid_curve", **curve})
     check(len(losses) == steps and all(map(math.isfinite, losses))
           and losses == stats["losses"],
           f"train losses {losses} / {stats['losses']}")
@@ -1111,7 +1229,7 @@ def train_run(torch, batch):
             "max_memory_allocated": stats["max_memory_allocated"],
             "losses": losses, "num_params": n_params, "sample_plot": plot,
             "launches": launches, "final_psnr_rec": psnr,
-            "time_stats": tstat}
+            "time_stats": tstat, "fid_curve": curve}
 
 
 def train_path(torch):
@@ -1246,7 +1364,9 @@ def pnp_gs_path(torch):
     GS_SR_ITERS; and pgd at 10 iterations, whose peak memory must equal
     the 30-iteration run's (no graph lives across iterations).  Each
     iteration is one forward and its VJP: exactly 136 groupnorm_swish
-    launches."""
+    launches.  These runs leave LPIPS out: its cuDNN workspace inside the
+    measured region moves the peak by megabytes with the allocator's
+    state, and the check holds the solver's own memory."""
     gs = ["model", "gradient_step"]
     runs = (
         ("pnp_gs_pgd_fp32", gs + ["algo", "pgd"], GS_ITERS),
@@ -1262,7 +1382,7 @@ def pnp_gs_path(torch):
     for name, extra, iters in runs:
         torch.cuda.empty_cache()
         with phase(f"main_path/{name}"):
-            r = cli_run(torch, extra, iters, method="pnp_gs")
+            r = cli_run(torch, extra, iters, method="pnp_gs", lpips=False)
         expect = only(groupnorm_swish=GN_SITES_64 * iters)
         check(r["launches"] == expect,
               f"{name}: launches {r['launches']}, expected {expect}")
@@ -1411,6 +1531,341 @@ def pnp_diff_path(torch, ckpt):
         emit({"main_path": name, **r})
         out[name] = r
     return out
+
+
+# ----------------------------------------------- 5c/6c. the metric stack
+def write_metric_weights(directory):
+    """The synthetic Inception weights (seed 0, with the fc head) and the
+    seeded LPIPS weights, written by the port's converters."""
+    import numpy as np
+
+    from pnpflow_tpu_torch.utils import inception_convert, lpips_convert
+
+    os.makedirs(directory)
+    inc = os.path.join(directory, "inception_fid.npz")
+    inception_convert.main("--synthetic", inc)
+    lp = os.path.join(directory, "lpips_alex.npz")
+    np.savez(lp, **lpips_convert.synthetic_weights(0))
+    METRIC_WEIGHTS.update({"inception_fid.npz": inc, "lpips_alex.npz": lp})
+
+
+def metrics_parity(torch, dev):
+    """The full-width FID InceptionV3 (synthetic weights) at 2 images of
+    64x64 and 256x256, pool3 and probabilities, and LPIPS (seeded AlexNet)
+    at 4 images of each size: the card against the CPU on the same inputs,
+    within INCEPTION_TOL of max|pool3| (the probabilities 1e-5) and
+    LPIPS_TOL relative; every output finite, with the feature scale (random
+    0.05-std convs and identity BatchNorm across 94 layers) printed."""
+    from pnpflow_tpu_torch.metrics.lpips import get_lpips_fn
+    from pnpflow_tpu_torch.models.inception import get_inception_fns
+    from pnpflow_tpu_torch.utils.config import CfgNode
+
+    with tempfile.TemporaryDirectory() as root:
+        link_metric_weights(root, inception=True)
+        args = CfgNode(dict(output_root=root))
+        inc = {d: get_inception_fns(args, device=d)[1] for d in ("cpu", dev)}
+        lp = {d: get_lpips_fn(args, d) for d in ("cpu", dev)}
+        g = torch.Generator().manual_seed(17)
+        res = {}
+        for dim in METRIC_DIMS:
+            x = torch.rand(2, dim, dim, 3, generator=g)
+            want = inc["cpu"](x)
+            t0 = time.perf_counter()
+            got = [t.cpu() for t in inc[dev](x.to(dev))]
+            seconds = time.perf_counter() - t0
+            scale = float(want[0].abs().max())
+            p3 = float((got[0] - want[0]).abs().max()) / scale
+            pr = float((got[1] - want[1]).abs().max())
+            y = torch.rand(4, dim, dim, 3, generator=g) * 2 - 1
+            z = (y + 0.2 * torch.randn(y.shape, generator=g)).clamp(-1, 1)
+            with torch.inference_mode():
+                lw = float(lp["cpu"](y, z))
+                lg = float(lp[dev](y.to(dev), z.to(dev)))
+            finite = all(bool(torch.isfinite(t).all()) for t in got) and \
+                math.isfinite(lg)
+            res[dim] = {"pool3_max": scale,
+                        "pool3_mean_abs": float(want[0].abs().mean()),
+                        "pool3_err_of_max": p3, "probs_max_err": pr,
+                        "probs_max": float(want[1].max()),
+                        "lpips_cpu": lw, "lpips_card": lg,
+                        "lpips_rel_err": abs(lg - lw) / abs(lw),
+                        "inception_first_call_s": seconds}
+            check(finite, f"metric networks at {dim}: non-finite output")
+            check(p3 <= INCEPTION_TOL and pr <= 1e-5,
+                  f"Inception at {dim}: pool3 {p3:.3e} of max, probs {pr:.3e}")
+            check(abs(lg - lw) <= LPIPS_TOL * abs(lw),
+                  f"LPIPS at {dim}: card {lg} vs CPU {lw}")
+        res["inception_chunk"] = inception_chunk_ms(torch, dev, g)
+    emit({"model_parity": "metrics", **{str(k): v for k, v in res.items()}})
+
+
+def inception_chunk_ms(torch, dev, g):
+    """One sampling chunk (METRIC_BATCH images, 64x64 resized to 299x299)
+    through the Inception: the CUDA-event median of FORWARD_REPS calls with
+    TF32 off (the port's float32) and on, beside the operation bound of its
+    convs and fc at the fp32 and TF32 peaks (counted from the output shapes
+    of one call)."""
+    from pnpflow_tpu_torch.device import set_fp32_parity_mode
+    from pnpflow_tpu_torch.models.inception import (
+        InceptionFID, load_inception_params)
+
+    x = torch.rand(METRIC_BATCH, 64, 64, 3, generator=g).to(dev)
+    net = InceptionFID(load_inception_params(
+        METRIC_WEIGHTS["inception_fid.npz"])).to(dev).eval()
+    flops = []
+
+    def count(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            flops.append(2 * out.numel() * mod.in_channels
+                         * mod.kernel_size[0] * mod.kernel_size[1])
+        elif isinstance(mod, torch.nn.Linear):
+            flops.append(2 * out.numel() * mod.in_features)
+
+    hooks = [m.register_forward_hook(count) for m in net.modules()]
+    with torch.inference_mode():
+        net.outputs(x)
+        for h in hooks:
+            h.remove()
+        ms = {}
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            ms["tf32" if tf32 else "fp32"] = cuda_median_ms(
+                torch, lambda: net.outputs(x))
+    set_fp32_parity_mode()
+    total = sum(flops)
+    return {"images": METRIC_BATCH, "ms": ms, "flop": total,
+            "bound_ms": {"fp32": total / PEAK["float32"] * 1e3,
+                         "tf32": total / PEAK["tf32"] * 1e3}}
+
+
+def compute_metrics_path(torch):
+    """``compute_metrics True`` through the CLI with the flagship U-Net at
+    64x64 ("conv" by the restoration default): METRIC_N samples by Euler in
+    METRIC_STEPS steps against METRIC_N test images on the synthetic
+    Inception features, then 10 PnP steps; the metrics.txt line must name
+    the weights' provenance and hold finite FID, KID, IS, Vendi and SW with
+    wall_s and peak memory, each within METRIC_REL_TOL of its value
+    recomputed on the CPU.  Then one dopri5 chunk (metric_n 50, the
+    default sampler) and a 1-step restoration: its nfe is the conv3x3_gn
+    launches over the sites less that one step."""
+    out = {}
+    chunks = -(-METRIC_N // METRIC_BATCH)
+    for name, extra, steps in (
+            ("compute_metrics", ["compute_metrics", "True", "metric_n",
+                                 str(METRIC_N), "metric_steps",
+                                 str(METRIC_STEPS), "metric_sampler",
+                                 "euler"], 10),
+            ("compute_metrics_dopri5", ["compute_metrics", "True",
+                                        "metric_n", str(METRIC_BATCH)], 1)):
+        torch.cuda.empty_cache()
+        with phase(f"main_path/{name}"):
+            r = cli_run(torch, extra, steps, metrics=True)
+        line = r["metrics_line"]
+        check(line["features"] == "inception_2048[synthetic_random_init_seed0]"
+              and all(math.isfinite(float(line[k])) for k in
+                      ("FID", "KID", "KID_std", "Vendi", "SW", "IS",
+                       "IS_std", "wall_s", "peak_mem_MiB"))
+              and line["peak_mem_src"] == "torch.cuda.max_memory_allocated",
+              f"{name}: metrics.txt {line}")
+        forwards, rem = divmod(r["launches"]["conv3x3_gn"], CONV_SITES)
+        check(rem == 0 and r["launches"] == only(
+            conv3x3_gn=r["launches"]["conv3x3_gn"]),
+            f"{name}: launches {r['launches']}")
+        r["metric_forwards"] = forwards - steps
+        if name == "compute_metrics":
+            check(r["metric_forwards"] == chunks * METRIC_STEPS,
+                  f"{name}: {r['metric_forwards']} sampling forwards")
+        else:
+            r["dopri5_nfe"] = r["metric_forwards"]
+        emit({"main_path": name, **r})
+        out[name] = r
+    return out
+
+
+def fid_curve(torch, args, out, steps):
+    """The FM trainer's FID curve on the checkpoint a ``train True`` run
+    wrote to ``out``: ``_fid_checkpoint`` at n = METRIC_N (cut from 5000)
+    on the EMA weights of the resume state, then once more after one more
+    step.  Each call appends one finite ``epoch fid`` row to FID_5k.txt,
+    the second with another value from freshly sampled chunks (the JAX
+    cache would repeat the first), and launches groupnorm_swish at each
+    128x128 site in each of its 200 Euler forwards."""
+    from pnpflow_tpu_torch.data import DataLoaders
+    from pnpflow_tpu_torch.training.flow_matching import FlowMatchingTrainer
+
+    link_metric_weights(out, inception=True)
+    args.compute_metrics = True
+    tr = FlowMatchingTrainer(args)
+    state, done, resumed = tr.restore_state(tr.init_state(0))
+    check(resumed and state.step == steps,
+          f"fid_curve: resume state at step {state.step}, epoch {done}")
+    loaders = DataLoaders("synthetic", 500, 500, dim_image=TRAIN_DIM,
+                          num_channels=3, test_n=METRIC_N).load_data()
+    expect = only(groupnorm_swish=gn_sites_at(TRAIN_DIM) * METRIC_STEPS
+                  * -(-METRIC_N // METRIC_BATCH))
+    calls = []
+    for epoch in (done, done + 1):
+        if epoch > done:
+            g = torch.Generator(device="cuda").manual_seed(7)
+            x0, x1 = (torch.randn(8, TRAIN_DIM, TRAIN_DIM, 3, generator=g,
+                                  device="cuda") for _ in range(2))
+            tr.train_step(state, x0, x1, g)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = tr._fid_checkpoint(state, epoch, loaders, n=METRIC_N)
+        torch.cuda.synchronize()
+        calls.append({"epoch": epoch, "seconds": time.perf_counter() - t0,
+                      "launches": read_counts(), **res})
+        check(calls[-1]["launches"] == expect,
+              f"fid_curve: launches {calls[-1]['launches']}, "
+              f"expected {expect}")
+    with open(os.path.join(tr.model_dir, "FID_5k.txt")) as f:
+        rows = [line.split() for line in f]
+    check([int(r[0]) for r in rows] == [done, done + 1]
+          and all(math.isfinite(float(r[1])) for r in rows)
+          and float(rows[0][1]) != float(rows[1][1])
+          and calls[1]["resumed_chunks"] == 0,
+          f"fid_curve: FID_5k.txt {rows}, calls {calls}")
+    return {"rows": rows, "calls": calls, "launches": {
+        k: sum(c["launches"][k] for c in calls) for k in KERNELS}}
+
+
+def remat_run(torch, name, opts, kernel, rect_ckpt):
+    """One differentiated method, fp32, FFT deblurring, DIFF_BATCH images,
+    solved with ``remat`` False and True on the same inputs: the results
+    within 1e-5 of max, and each run's peak memory (from a reset after the
+    model is built, so both hold the weights), seconds and launches; under
+    remat the forwards that a gradient reaches run again (flow_priors: the
+    whole JVP), so ``kernel`` launches more."""
+    from pnpflow_tpu_torch.data import DataLoaders
+    from pnpflow_tpu_torch.models.registry import build_model_bundle
+    from pnpflow_tpu_torch.ops.degradations import make_degradation
+    from pnpflow_tpu_torch.solvers.base import measure
+    from pnpflow_tpu_torch.solvers.factory import build_solver
+    from pnpflow_tpu_torch.utils.config import load_full_config
+
+    dev = torch.device("cuda")
+    dim = int(opts[opts.index("dim_image") + 1])
+    clean_np = next(iter(DataLoaders(
+        "synthetic", DIFF_BATCH, DIFF_BATCH, dim_image=dim,
+        num_channels=3).load_data()["test"]))[0]
+    res = {}
+    with tempfile.TemporaryDirectory() as root:
+        if "rectified" in opts:
+            ck = os.path.join(root, "model", "synthetic", "rectified")
+            os.makedirs(ck)
+            os.symlink(rect_ckpt, os.path.join(ck, "model_final.pt"))
+        for remat in (False, True):
+            args = load_full_config(
+                ["dataset", "synthetic", "problem", "gaussian_deblurring_FFT",
+                 "batch_size_ip", str(DIFF_BATCH), "remat", str(remat),
+                 "output_root", root] + opts, root=HERE)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # the random-init warning
+                bundle = build_model_bundle(args, device=dev)
+            check(bundle.remat == remat, "remat not read")
+            deg, sigma = make_degradation(args, device=dev)
+            clean = torch.as_tensor(clean_np, device=dev)
+            noisy = measure(deg.H, clean, sigma, "gaussian", 0)
+            solver = build_solver(bundle, args)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            with solver.grad_mode():
+                x, _ = solver.solve_batch(clean, noisy, deg, sigma, 0)
+            torch.cuda.synchronize()
+            res[remat] = {"x": x, "seconds": time.perf_counter() - t0,
+                          "max_memory_allocated":
+                              torch.cuda.max_memory_allocated(),
+                          "launches": read_counts(), "fir_roles": fir_roles()}
+            del bundle, solver, deg
+    a, b = res[False].pop("x"), res[True].pop("x")
+    err = float((b - a).abs().max()) / float(a.abs().max())
+    check(err <= 1e-5, f"remat {name}: {err:.3e} of max")
+    fewer = res[False]["launches"][kernel]
+    check(res[True]["launches"][kernel] > fewer > 0,
+          f"remat {name}: launches {res}")
+    return {"options": opts, "err_of_max": err, "remat_false": res[False],
+            "remat_true": res[True],
+            "peak_saved_bytes": res[False]["max_memory_allocated"]
+            - res[True]["max_memory_allocated"],
+            "time_ratio": res[True]["seconds"] / res[False]["seconds"],
+            "launches": res[True]["launches"],
+            "fir_roles": res[True]["fir_roles"]}
+
+
+def remat_path(torch, rect_ckpt):
+    """``remat`` False against True on every method that differentiates the
+    model: the flagship U-Net at 64x64 (``fused_norm`` True, the methods'
+    default) with ot_ode at REMAT_OT_STEPS steps, d_flow at one step of
+    REMAT_LBFGS_ITER LBFGS iterations and pnp_gs (``model
+    gradient_step``) at REMAT_GS_ITERS iterations, and the NCSN++ 256^2
+    with flow_priors at N = RECT_FP_N.  The peaks do not depend on the
+    iterations (a step holds one graph), so the runs are short."""
+    unet = ["dim_image", "64"]
+    runs = (
+        ("ot_ode", unet + ["model", "ot", "method", "ot_ode", "steps_ode",
+                           str(REMAT_OT_STEPS)], "groupnorm_swish"),
+        ("d_flow", unet + ["model", "ot", "method", "d_flow", "max_iter",
+                           "1", "LBFGS_iter", str(REMAT_LBFGS_ITER)],
+         "groupnorm_swish"),
+        ("pnp_gs", unet + ["model", "gradient_step", "method", "pnp_gs",
+                           "max_iter", str(REMAT_GS_ITERS)],
+         "groupnorm_swish"),
+        ("rect_flow_priors", ["model", "rectified", "dim_image",
+                              str(RECT_DIM), "method", "flow_priors", "N",
+                              str(RECT_FP_N)], "upfirdn2d"),
+    )
+    out = {}
+    for name, opts, kernel in runs:
+        torch.cuda.empty_cache()
+        with phase(f"main_path/remat_{name}_fp32"):
+            r = remat_run(torch, name, opts, kernel, rect_ckpt)
+        emit({"main_path": f"remat_{name}_fp32", **r})
+        out[f"remat_{name}_fp32"] = r
+    return out
+
+
+def serve_path(torch):
+    """``Restorer(method="pnp_flow", problem="gaussian_deblurring_FFT")``
+    with the flagship U-Net at 64x64 ("conv", seeded random weights) and 4
+    images: ``warmup``, then two ``restore`` calls with the same seed, which
+    must be equal bit for bit, finite, and leave the output root empty."""
+    import numpy as np
+
+    from pnpflow_tpu_torch.data import DataLoaders
+    from pnpflow_tpu_torch.serve import Restorer
+
+    with tempfile.TemporaryDirectory() as root:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # the random-init warning
+            r = Restorer(method="pnp_flow",
+                         problem="gaussian_deblurring_FFT", dim_image=64,
+                         batch_size=4, output_root=root)
+        clean = next(iter(DataLoaders("synthetic", 4, 4, dim_image=64,
+                                      num_channels=3).load_data()["test"]))[0]
+        y = r.degrade(clean, seed=0)
+        reset_counts()
+        t0 = time.perf_counter()
+        r.warmup()
+        times, outs = [time.perf_counter() - t0], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            outs.append(r.restore(y, seed=1))     # numpy: synchronised
+            times.append(time.perf_counter() - t0)
+        launches = read_counts()
+        left = os.listdir(root)
+    a, b = outs
+    check(np.array_equal(a, b) and np.isfinite(a).all(),
+          "serve: two restores with one seed differ")
+    check(not left, f"serve wrote {left}")
+    expect = only(conv3x3_gn=CONV_SITES * SERVE_STEPS * 3)
+    check(launches == expect, f"serve: launches {launches}, expected {expect}")
+    return {"steps": SERVE_STEPS, "images": 4, "warmup_seconds": times[0],
+            "seconds_per_restore": times[1:], "launches": launches}
 
 
 # --------------------------------------------------------------- 7. timing
@@ -2108,6 +2563,9 @@ def main():
     with phase("model_parity/diffunet"):
         diffunet_parity(torch, dev, diff_state)
     with tempfile.TemporaryDirectory() as tmp:
+        write_metric_weights(os.path.join(tmp, "metric_weights"))
+        with phase("model_parity/metrics"):
+            metrics_parity(torch, dev)
         rect_ckpt = os.path.join(tmp, "rectified.pt")
         # a RectifiedFlow-layout checkpoint: {model, ema, optimizer, step}
         torch.save({"model": {"module." + k: v for k, v in rect_state.items()},
@@ -2115,12 +2573,18 @@ def main():
         diff_ckpt = save_diffunet_checkpoint(diff_state, tmp)
         del diff_state
         launches, runs = main_path(torch, rect_ckpt)
+        runs.update(compute_metrics_path(torch))
         train = train_path(torch)
         runs["train_fp32"] = train
+        runs["fid_curve"] = train["fid_curve"]
         runs.update(differentiated_path(torch, rect_ckpt))
+        runs.update(remat_path(torch, rect_ckpt))
         runs.update(pnp_gs_path(torch))
         runs["train_gs_fp32"] = train_gs_path(torch)
         runs.update(pnp_diff_path(torch, diff_ckpt))
+        with phase("main_path/serve"):
+            runs["serve"] = serve_path(torch)
+        emit({"main_path": "serve", **runs["serve"]})
     launches["groupnorm_swish"] += train["launches"]["groupnorm_swish"]
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")

@@ -16,9 +16,15 @@ the U-Net); ``--opts model rectified`` restores with the NCSN++ (its FIR
 resampling through the ``upfirdn2d`` kernel) and ``model diffusion`` with
 the DiffUNet (``method pnp_diff``, float32 always); ``--opts bf16 True``
 restores in bfloat16, and the default float32 restoration turns TF32 off.
+``compute_metrics True`` scores the prior before the restoration, as the
+JAX CLI does: FID, KID, IS, Vendi and SW of ``metric_n`` (default 5000)
+samples of the flow ODE (``metric_sampler``, default dopri5; ``metric_steps``
+for the fixed-step samplers, default 100) against as many test images, on
+the Inception features of ``{output_root}/model/inception_fid.npz`` or,
+without that file, on 32x32 pixels (``metrics/generative.py``); with
+``train True`` the trainer also writes the FID-5k curve.
 
-Not ported yet: ``compute_metrics True`` and the ``grain`` data backend;
-each raises.
+Not ported yet: the ``grain`` data backend; it raises.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from pnpflow_tpu_torch.data import DataLoaders
 from pnpflow_tpu_torch.device import resolve_device, set_fp32_parity_mode
+from pnpflow_tpu_torch.metrics.generative import ComputeMetric
 from pnpflow_tpu_torch.models.registry import build_model_bundle
 from pnpflow_tpu_torch.ops.degradations import make_degradation
 from pnpflow_tpu_torch.solvers.factory import build_solver
@@ -68,8 +75,18 @@ def main(argv=None):
     bundle = build_model_bundle(args, dtype=dtype, device=device)
 
     if args.compute_metrics:
-        raise NotImplementedError(
-            "compute_metrics is not ported yet (ROADMAP queue 1, item 12)")
+        print("Computing metrics...")
+        # n = 5000 is the reference protocol (compute_metric.py:30)
+        n_metric = int(getattr(args, "metric_n", 5000) or 5000)
+        metric_steps = int(getattr(args, "metric_steps", 100) or 100)
+        metric_loaders = DataLoaders(
+            args.dataset, min(n_metric, 500), min(n_metric, 500),
+            root=os.path.join(args.root, "data"), dim_image=args.dim_image,
+            num_channels=args.num_channels, test_n=n_metric,
+        ).load_data()
+        args.metrics = ComputeMetric(metric_loaders, bundle, args)\
+            .compute_metrics(n_metric, steps=metric_steps)
+        print("Computing metrics done!")
 
     degradation, sigma_noise = make_degradation(args, device=device)
     print("Solving the {} inverse problem with the method {}...".format(

@@ -332,10 +332,12 @@ class RectifiedAdapter(nn.Module):
 
 
 def build_model_bundle(args, dtype=torch.float32, device=None) -> ModelBundle:
-    """The model with resolved weights on ``device`` (default ``cuda``)."""
+    """The model with resolved weights on ``device`` (default ``cuda``);
+    ``--opts remat True`` sets the bundle's ``remat``."""
     dev = resolve_device(device)
     module = load_params(define_model(args, dtype=dtype), args)
     if args.model == "rectified":
         module = RectifiedAdapter(module)
     return ModelBundle(model=module.to(dev).eval(), device=dev,
-                       kind=args.model)
+                       kind=args.model,
+                       remat=bool(getattr(args, "remat", False)))

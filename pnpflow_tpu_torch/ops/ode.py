@@ -22,6 +22,8 @@ the device.
   arithmetic then runs on the host in float32.  It returns the same
   function-evaluation count as JAX: 7 per attempted step.
 
+:func:`odeint` dispatches on the method's name, as JAX's ``odeint`` does.
+
 Every integrator takes ``f(x, t) -> dx/dt`` with ``t`` a Python float and
 integrates from t0 to t1, in either direction.
 """
@@ -30,7 +32,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["odeint_euler", "odeint_midpoint", "odeint_heun",
+__all__ = ["odeint", "odeint_euler", "odeint_midpoint", "odeint_heun",
            "odeint_dopri5", "odeint_dopri5_stats"]
 
 f32 = np.float32
@@ -143,3 +145,17 @@ def odeint_dopri5(f, x0, t0: float, t1: float, rtol: float = 1e-5,
     return odeint_dopri5_stats(f, x0, t0, t1, rtol=rtol, atol=atol,
                                max_steps=max_steps)[0]
 
+
+def odeint(f, x0, t0: float, t1: float, method: str = "dopri5",
+           steps: int = 100, rtol: float = 1e-5, atol: float = 1e-5):
+    """Integrate with ``method`` (euler, midpoint, heun: ``steps`` fixed
+    steps; dopri5: adaptive at ``rtol`` / ``atol``)."""
+    if method == "euler":
+        return odeint_euler(f, x0, t0, t1, steps)
+    if method == "midpoint":
+        return odeint_midpoint(f, x0, t0, t1, steps)
+    if method == "heun":
+        return odeint_heun(f, x0, t0, t1, steps)
+    if method == "dopri5":
+        return odeint_dopri5(f, x0, t0, t1, rtol=rtol, atol=atol)
+    raise ValueError("Unknown ODE method: {}".format(method))

@@ -15,6 +15,7 @@ import warnings
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 import pnpflow_tpu_torch.utils.reporting as reporting
 from pnpflow_tpu_torch.utils.config import get_save_path_ip
@@ -25,13 +26,25 @@ class ModelBundle:
     """A velocity model on its device: ``forward(x_nhwc, t_vec) -> v``.
 
     For ``kind == "rectified"`` the model is the NCSN++ behind its adapter,
-    which already scales t by 999."""
+    which already scales t by 999.  ``remat`` (``--opts remat True``) makes
+    the solvers that differentiate through the model recompute its forward
+    in the backward instead of keeping its activations, as JAX's
+    ``jax.checkpoint`` around the apply does: :meth:`grad_forward` for a
+    VJP; flow_priors checkpoints its whole ``torch.func.jvp`` instead."""
 
     model: torch.nn.Module
     device: torch.device = torch.device("cpu")
     kind: str = "ot"
+    remat: bool = False
 
     def forward(self, x, t):
+        return self.model(x, t)
+
+    def grad_forward(self, x, t):
+        """The forward that a VJP differentiates: under ``remat`` one
+        non-reentrant ``torch.utils.checkpoint`` of the model."""
+        if self.remat:
+            return checkpoint(self.model, x, t, use_reentrant=False)
         return self.model(x, t)
 
 
@@ -60,9 +73,15 @@ def measure(H, clean, sigma_noise, noise_type, batch: int, noise=None):
 
 
 def peak_memory_info(device) -> tuple:
-    """``(bytes, source)``: the CUDA allocator's peak since the last reset."""
-    return (int(torch.cuda.max_memory_allocated(device)),
-            "torch.cuda.max_memory_allocated")
+    """``(bytes, source)``: on a CUDA device the allocator's peak since the
+    last reset; on the CPU the process's peak resident set."""
+    if torch.device(device).type == "cuda":
+        return (int(torch.cuda.max_memory_allocated(device)),
+                "torch.cuda.max_memory_allocated")
+    import resource
+
+    return (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            "ru_maxrss")
 
 
 class Solver:
@@ -96,9 +115,13 @@ class Solver:
         os.makedirs(args.save_path_ip, exist_ok=True)
         self.solve_ip(data_loaders[args.eval_split], degradation, sigma_noise)
 
+    def grad_mode(self):
+        """The autograd mode the solver runs in (see the class notes)."""
+        return (torch.no_grad() if self.differentiates
+                else torch.inference_mode())
+
     def solve_ip(self, test_loader, degradation, sigma_noise):
-        with (torch.no_grad() if self.differentiates
-              else torch.inference_mode()):
+        with self.grad_mode():
             self._solve_ip(test_loader, degradation, sigma_noise)
 
     def _solve_ip(self, test_loader, degradation, sigma_noise):

@@ -13,7 +13,9 @@
 
    where T(z) is ``steps_euler - 1`` midpoint steps of the flow from
    start_time to 1, each under one non-reentrant ``torch.utils.checkpoint``
-   (JAX: ``jax.checkpoint`` per scan step), differentiated end to end.
+   (JAX: ``jax.checkpoint`` per scan step), differentiated end to end;
+   under ``remat`` each model forward is checkpointed again inside its
+   step, as JAX nests ``jax.checkpoint(apply)`` in the step's.
 
 The JAX package runs optax's ``lbfgs`` with a zoom line search instead,
 with torch's stopping tests in an early-exit loop; the two optimisers take
@@ -123,7 +125,8 @@ class DFlow(Solver):
             z_init = math.sqrt(alpha) * z0 + math.sqrt(1.0 - alpha) * (
                 torch.randn(z0.shape, generator=gen, device=z0.device,
                             dtype=z0.dtype))
-        forward = make_forward_flow(fwd, int(args.steps_euler),
+        forward = make_forward_flow(self.model.grad_forward,
+                                    int(args.steps_euler),
                                     float(args.start_time))
         z = lbfgs_solve(
             make_loss(forward, degradation.H, noisy_img, float(args.lmbda)),

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pnpflow_tpu_torch.solvers.base import Solver
 
@@ -48,9 +49,14 @@ def rademacher(shape, generator, device):
 
 
 def make_flow_priors_solver(model_fn, H, *, N: int, K: int, lmbda: float,
-                            eta: float, start_time: float, noise_type: str):
+                            eta: float, start_time: float, noise_type: str,
+                            remat: bool = False):
     """Build ``solve(y, h_x_init, x, probe) -> x``; ``probe(i, k)`` gives
-    the Rademacher probe of outer iteration i, inner step k."""
+    the Rademacher probe of outer iteration i, inner step k.  ``remat``
+    runs each JVP inside one non-reentrant checkpoint, so the gradient
+    recomputes it: the checkpoint goes around the whole ``torch.func.jvp``,
+    since one around the forward inside it saves other tensors in the
+    recomputation than in the first pass, which the backward refuses."""
     if start_time > 0.0:
         eps_t = start_time
         dt = (1.0 - eps_t) / N
@@ -76,11 +82,17 @@ def make_flow_priors_solver(model_fn, H, *, N: int, K: int, lmbda: float,
                                dtype=torch.float32, device=x.device)
             fwd = lambda z: model_fn(z, t_vec)  # noqa: E731
 
+            def jvp(x, eps):
+                return torch.func.jvp(fwd, (x,), (eps,))
+
             def grad_fn(x, eps):
                 """(d loss / dx, v(x, t)), v detached."""
                 with torch.enable_grad():
                     x = x.detach().requires_grad_()
-                    v, jv = torch.func.jvp(fwd, (x,), (eps,))
+                    if remat:
+                        v, jv = checkpoint(jvp, x, eps, use_reentrant=False)
+                    else:
+                        v, jv = jvp(x, eps)
                     resid = H(x + v * dt32) - y_next
                     if noise_type == "gaussian":
                         fid = lmbda * (resid ** 2).sum(dim=(1, 2, 3))
@@ -117,7 +129,8 @@ class FlowPriors(Solver):
         solve = make_flow_priors_solver(
             self.model.forward, degradation.H, N=N, K=K,
             lmbda=float(args.lmbda), eta=float(args.eta),
-            start_time=float(args.start_time), noise_type=args.noise_type)
+            start_time=float(args.start_time), noise_type=args.noise_type,
+            remat=self.model.remat)
         dev = noisy_img.device
         gen = torch.Generator(device=dev).manual_seed(1000 + int(batch))
         if x_init is None:

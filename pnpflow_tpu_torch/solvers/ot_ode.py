@@ -17,7 +17,8 @@ sigma^2 with the reference's literal rt2' = (1-t)^2 / ((1-t)^2 +
 delta*i^2) (a quirk kept for parity), FFT deblurring in Fourier space, and
 anything else (bicubic super-resolution) through batched GMRES
 (``ops/linalg.py``).  The model VJP is ``torch.autograd.grad(v, x,
-grad_outputs=vec)``: with ``fused_norm True`` the U-Net's GroupNorms run the
+grad_outputs=vec)`` (under ``remat`` the forward is checkpointed and
+recomputed by the VJP): with ``fused_norm True`` the U-Net's GroupNorms run the
 ``groupnorm_swish`` kernel forward and their plain backward; the NCSN++'s
 FIR resampling runs ``upfirdn2d`` forward and, as its backward, the same
 kernel in the adjoint geometry.
@@ -135,7 +136,7 @@ class OTOde(Solver):
         start_time = float(args.start_time)
         first_iter = int(steps * start_time)
         solve = make_ot_ode_solver(
-            self.model.forward, degradation, problem=args.problem,
+            self.model.grad_forward, degradation, problem=args.problem,
             steps=steps, gamma=args.gamma, sigma_noise=float(sigma_noise))
         if x_init is None:
             gen = torch.Generator(device=noisy_img.device).manual_seed(

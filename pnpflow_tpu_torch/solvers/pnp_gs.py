@@ -17,7 +17,8 @@ The denoiser is D(x) = x - Dg(x), Dg from a VJP of the U-Net at t = sigma
         backtracking alpha <- 0.9 alpha, decided on the device;
       - superresolution_bicubic: the block-splitting Fourier prox.
 
-Each iteration takes one U-Net forward and its VJP: with ``fused_norm True``
+Each iteration takes one U-Net forward and its VJP (under ``remat`` the
+forward is checkpointed and recomputed by the VJP): with ``fused_norm True``
 (these methods' default) the forward runs the ``groupnorm_swish`` kernel at
 every GroupNorm and the VJP its plain backward.  The outer loop runs under
 ``no_grad`` (``Solver.differentiates``) and each VJP under ``enable_grad``
@@ -175,14 +176,17 @@ class ProxPnP(Solver):
         args = self.args
         max_iter = int(args.max_iter)
         solve = make_pnp_gs_solver(
-            self.model.forward, degradation, problem=args.problem,
+            self.model.grad_forward, degradation, problem=args.problem,
             algo=args.algo, noise_type=args.noise_type,
             sigma_noise=float(sigma_noise), lr_pnp=float(args.lr_pnp),
             sigma_factor=float(getattr(args, "sigma_factor", 1.0)),
             max_iter=max_iter)
         x = initial_iterate(args.problem, degradation, noisy_img)
-        alpha_c = torch.tensor(self._alpha_carry, dtype=torch.float32,
-                               device=x.device)
+        # a solve_batch called outside solve_ip (the serving API) starts
+        # from args.alpha, as JAX's does
+        alpha_c = torch.tensor(getattr(self, "_alpha_carry",
+                                       float(args.alpha)),
+                               dtype=torch.float32, device=x.device)
         done = 0
         for r in (report_points(max_iter) if report_cb is not None else []):
             x, alpha_c = solve(noisy_img, x, alpha_c, done, r + 1 - done)

@@ -22,14 +22,20 @@ VJP.  ``"conv"`` is forward-only and refused.
 
 The steps take ``t`` and ``x0`` as arguments or draw them from explicit
 ``torch.Generator``s, so a test can hand both packages the same ones.
+``apply_flow_matching`` samples by Euler or by adaptive dopri5 at rtol =
+atol = 1e-5.  Under ``compute_metrics`` every ``save_every`` epoch appends
+an ``epoch fid`` row to ``FID_5k.txt``: the EMA weights, Euler in 10 steps,
+5000 samples (``_fid_checkpoint``).  Where JAX prints "FID checkpoint
+skipped" on any error, the port lets it propagate: a swallowed failure
+would hide a broken metric path.
 
 Not ported (ROADMAP queue 1 item 7): data parallelism over several cards
-(``parallel/mesh.py``), the Orbax checkpoint backend, the dopri5 sampler
-and the FID-5k training curve (``compute_metrics``); each raises.
+(``parallel/mesh.py``) and the Orbax checkpoint backend; each raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import warnings
@@ -42,11 +48,14 @@ from torch.utils.checkpoint import checkpoint
 
 from pnpflow_tpu_torch.data.prefetch import prefetch, to_device
 from pnpflow_tpu_torch.device import resolve_device
+from pnpflow_tpu_torch.metrics.generative import ComputeMetric
 from pnpflow_tpu_torch.models.registry import (
     checked_state_dict, define_model, model_fingerprint, read_msgpack,
     save_params_file, write_msgpack)
 from pnpflow_tpu_torch.models.unet import init_weights
+from pnpflow_tpu_torch.ops.ode import odeint_dopri5
 from pnpflow_tpu_torch.ops.ot import host_ot_pair, ot_pair_indices
+from pnpflow_tpu_torch.solvers.base import ModelBundle
 from pnpflow_tpu_torch.utils.jax_params import (
     adam_state_dict_from_flax, flax_adam_state, flax_from_state_dict,
     state_dict_from_flax)
@@ -244,10 +253,6 @@ class FlowMatchingTrainer:
             raise NotImplementedError(
                 "ckpt_backend {!r} is not ported (ROADMAP queue 1, item 7): "
                 "use msgpack".format(args.ckpt_backend))
-        if getattr(args, "compute_metrics", False):
-            raise NotImplementedError(
-                "the FID-5k training curve (compute_metrics) is not ported "
-                "yet (ROADMAP queue 1, item 12)")
         self.args = args
         self.device = resolve_device(
             getattr(args, "device", None) if device is None else device)
@@ -424,6 +429,7 @@ class FlowMatchingTrainer:
             if epoch % self.save_every == 0:
                 self.save_state(state, epoch, epochs_done=epoch + 1)
                 self._save_sample_plot(state, epoch)
+                self._fid_checkpoint(state, epoch, data_loaders)
         self.save_state(state, epochs_done=self.num_epoch)
         if dev.type == "cuda":
             self.stats["max_memory_allocated"] = \
@@ -431,32 +437,77 @@ class FlowMatchingTrainer:
         return state
 
     # -- sampling ------------------------------------------------------------
+    @contextlib.contextmanager
+    def _weights(self, state, use_ema: bool = True):
+        """The model with the EMA in its parameters (``use_ema``) for the
+        duration, the trained ones restored after."""
+        if not use_ema:
+            yield state.model
+            return
+        params = [p for _, p in state.model.named_parameters()]
+        kept = [p.detach().clone() for p in params]
+        with torch.no_grad():
+            torch._foreach_copy_(params, [state.ema[n] for n in self.names])
+        try:
+            yield state.model
+        finally:
+            with torch.no_grad():
+                torch._foreach_copy_(params, kept)
+
     def apply_flow_matching(self, state, n: int, generator=None,
                             steps: int = 100, use_ema: bool = True,
-                            method: str = "euler"):
-        """Sample n images by Euler integration of the flow from noise, with
-        the EMA weights (``use_ema``) or the trained ones."""
-        if method != "euler":
-            raise NotImplementedError(
-                f"method {method!r} needs ops/ode.py, not ported yet "
-                "(ROADMAP queue 1, item 12)")
+                            method: str = "euler", z=None):
+        """Sample n images by integrating the flow from noise, with the EMA
+        weights (``use_ema``) or the trained ones: ``method "euler"`` in
+        ``steps`` fixed steps, ``"dopri5"`` adaptively at rtol = atol =
+        1e-5, as the reference's odeint (train_flow_matching.py:131-150).
+        The start is ``z`` if given, else drawn from ``generator``."""
+        if method not in ("euler", "dopri5"):
+            raise ValueError(f"unknown sampler {method!r}: euler or dopri5")
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         dim, c = self.args.dim_image, self.args.num_channels
-        model = state.model
-        params = [p for _, p in model.named_parameters()]
-        kept = [p.detach().clone() for p in params] if use_ema else None
-        if use_ema:
+        shape = (n, dim, dim, c)
+        with self._weights(state, use_ema) as model:
+            if method == "euler":
+                return euler_sample(model, shape, steps=steps,
+                                    generator=generator, noise=z,
+                                    device=self.device)
+            x = _normal(shape, generator, self.device, z)
+
+            def vfield(x, t):
+                return model(x, torch.full((x.shape[0],), t,
+                                           dtype=torch.float32,
+                                           device=x.device))
+
             with torch.no_grad():
-                torch._foreach_copy_(params, [state.ema[n]
-                                              for n in self.names])
-        try:
-            return euler_sample(model, (n, dim, dim, c), steps=steps,
-                                generator=generator, device=self.device)
-        finally:
-            if use_ema:
-                with torch.no_grad():
-                    torch._foreach_copy_(params, kept)
+                return odeint_dopri5(vfield, x, 0.0, 1.0, rtol=1e-5,
+                                     atol=1e-5)
+
+    def _fid_checkpoint(self, state, epoch, data_loaders, n: int = 5000):
+        """The FID-5k training curve (reference train_flow_matching.py:
+        117-129): n samples of the EMA weights by Euler in 10 steps, scored
+        against the test split (the train split where there is none), one
+        ``epoch fid`` row appended to ``FID_5k.txt``.  Runs only under
+        ``compute_metrics``; an error propagates.  The generated chunks are
+        not cached: each call scores new weights, so none could be read
+        again.  Returns the metrics."""
+        args = self.args
+        if not getattr(args, "compute_metrics", False):
+            return None
+        if not getattr(args, "eval_split", None):
+            args.eval_split = "test"
+        split = args.eval_split
+        test = data_loaders.get(split) or data_loaders.get("train")
+        with self._weights(state) as model:
+            out = ComputeMetric(
+                {split: test},
+                ModelBundle(model=model, device=self.device, kind=args.model),
+                args).compute_metrics(n, steps=10, sampler="euler",
+                                      cache=False)
+        with open(os.path.join(self.model_dir, "FID_5k.txt"), "a") as f:
+            f.write("{} {}\n".format(epoch, out["fid"]))
+        return out
 
     def _save_sample_plot(self, state, epoch):
         """Model samples beside training samples (reference save_samples,

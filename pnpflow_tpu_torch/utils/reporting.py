@@ -1,10 +1,10 @@
 """Result reporting in the reference's txt / result-dir layout.
 
 Port of ``pnpflow_tpu/utils/reporting.py``: per-batch
-``psnr_rec_batch{b}.txt`` rows of ``iter value``, per-metric
-``*_average.txt``, and ``final_*.txt`` tables whose header row names the
-method hyperparameters.  Metrics run in float32 on host copies of the
-images.  Image grids are PNGs written by a small numpy + zlib encoder;
+``psnr_rec_batch{b}.txt`` rows of ``iter value`` (and ``ssim_*``,
+``lpips_*``), per-metric ``*_average.txt``, and ``final_*.txt`` tables whose
+header row names the method hyperparameters.  PSNR and SSIM run in float32
+on host copies of the images, LPIPS in float32 on their device.  Image grids are PNGs written by a small numpy + zlib encoder;
 per-image ``.eps`` files need matplotlib and are skipped with a warning
 without it.
 """
@@ -22,6 +22,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from pnpflow_tpu_torch.metrics import lpips as lpips_mod
 from pnpflow_tpu_torch.metrics.image_quality import psnr as _psnr
 from pnpflow_tpu_torch.metrics.image_quality import ssim as _ssim
 
@@ -83,19 +84,25 @@ def compute_ssim(clean_img, noisy_img, rec_img, args, H_adj=None,
 
 def compute_lpips(clean_img, noisy_img, rec_img, args, H_adj=None,
                   iter="final"):
-    """LPIPS needs converted AlexNet weights at
-    ``{output_root}/model/lpips_alex.npz``: without them it is skipped with
-    a warning; with them it raises, since the LPIPS network is not ported
-    yet and skipping would silently write a different file set."""
-    path = os.path.abspath(os.path.join(
-        getattr(args, "output_root", "./"), "model", "lpips_alex.npz"))
-    if os.path.exists(path):
-        raise NotImplementedError(
-            f"{path}: LPIPS is not ported yet (ROADMAP queue 1, item 12)")
-    # the warnings module shows a repeated message once per call site
-    warnings.warn(f"LPIPS weights not found at {path} — skipping LPIPS "
-                  "reporting (PSNR/SSIM unaffected).")
-    return None
+    """LPIPS (AlexNet) of the restored and of the measured image against
+    the clean one, on the images' device, with the converted weights at
+    ``{output_root}/model/lpips_alex.npz``; skipped with one warning when
+    that file is absent."""
+    fn = lpips_mod.get_lpips_fn(args, device=clean_img.device)
+    if fn is None:
+        return None
+    noisy_img = _noisy_view(noisy_img, args, H_adj)
+    with torch.inference_mode():
+        # JAX's order of operations: to [0, 1], then back to [-1, 1]
+        clean, noisy, rec = (2.0 * ((img.detach().float() + 1.0) / 2.0) - 1.0
+                             for img in (clean_img, noisy_img, rec_img))
+        values = {"rec": float(fn(clean, rec)),
+                  "noisy": float(fn(clean, noisy))}
+    for word, value in values.items():
+        _append(os.path.join(args.save_path_ip,
+                             f"lpips_{word}_batch{args.batch}.txt"),
+                f"{iter} {value}")
+    return values["rec"]
 
 
 def _compute_average(metric_name, args):

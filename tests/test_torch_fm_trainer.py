@@ -275,11 +275,13 @@ def test_refusals(tmp_path, monkeypatch):
                                              fused_norm="conv")))
     with pytest.raises(NotImplementedError, match="orbax"):
         _trainer(tmp_path, ckpt_backend="orbax")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _trainer(tmp_path, compute_metrics=True)
+    # compute_metrics (the FID-5k curve) and the dopri5 sampler are
+    # ported (tests/test_torch_fid_curve.py, tests/test_torch_ode.py); an
+    # unknown sampler is refused
+    _trainer(tmp_path, compute_metrics=True)
     tr = _trainer(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tr.apply_flow_matching(tr.init_state(), 2, method="dopri5")
+    with pytest.raises(ValueError, match="euler or dopri5"):
+        tr.apply_flow_matching(tr.init_state(), 2, method="rk4")
     # a model handed in with "conv" stops at the first step, before any
     # update
     conv = fm.FlowMatchingTrainer(CfgNode(_args(tmp_path)),

@@ -695,3 +695,101 @@ def test_diffunet_and_diffpir_on_card_match_cpu(cuda):
         scale = float(want.abs().max())
         assert scale > 0.1
         assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+# ------------------------------------------------ the metric stack, remat
+def _metric_weights(root):
+    """The synthetic Inception and seeded LPIPS npz files under root."""
+    import os
+
+    import numpy as np
+
+    from pnpflow_tpu_torch.utils import inception_convert, lpips_convert
+
+    os.makedirs(root / "model", exist_ok=True)
+    inception_convert.main("--synthetic",
+                           str(root / "model" / "inception_fid.npz"))
+    np.savez(root / "model" / "lpips_alex.npz",
+             **lpips_convert.synthetic_weights(0))
+
+
+def test_inception_and_lpips_on_card_match_cpu(cuda, tmp_path):
+    """pool3 within 1e-4 of its max, the probabilities within 1e-5, LPIPS
+    within 1e-5 relative: the card against the CPU on the same weights."""
+    from pnpflow_tpu_torch.metrics.lpips import get_lpips_fn
+    from pnpflow_tpu_torch.models.inception import get_inception_fns
+    from pnpflow_tpu_torch.utils.config import CfgNode
+
+    _metric_weights(tmp_path)
+    args = CfgNode(dict(output_root=str(tmp_path)))
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(2, 64, 64, 3, generator=g)
+    want = get_inception_fns(args, device="cpu")[1](x)
+    got = get_inception_fns(args, device=cuda)[1](x.to(cuda))
+    assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-4 * float(
+        want[0].abs().max())
+    assert float((got[1].cpu() - want[1]).abs().max()) <= 1e-5
+    y = (2 * x - 1).clamp(-1, 1)
+    z = (y + 0.1 * torch.randn(y.shape, generator=g)).clamp(-1, 1)
+    with torch.inference_mode():
+        lw = float(get_lpips_fn(args, "cpu")(y, z))
+        lg = float(get_lpips_fn(args, cuda)(y.to(cuda), z.to(cuda)))
+    assert abs(lg - lw) <= 1e-5 * abs(lw)
+
+
+def test_metric_networks_default_to_the_card_and_refuse_host_images(
+        cuda, tmp_path):
+    """Without a device both networks run on the card, and images left on
+    the host raise instead of being copied."""
+    from pnpflow_tpu_torch.metrics.lpips import get_lpips_fn
+    from pnpflow_tpu_torch.models.inception import get_inception_fns
+    from pnpflow_tpu_torch.utils.config import CfgNode
+
+    _metric_weights(tmp_path)
+    args = CfgNode(dict(output_root=str(tmp_path)))
+    feature_fn, outputs_fn = get_inception_fns(args)
+    x = torch.rand(1, 64, 64, 3)
+    assert feature_fn(x.to(cuda)).device.type == "cuda"
+    for fn in (feature_fn, outputs_fn):
+        with pytest.raises(ValueError, match="on cpu"):
+            fn(x)
+    lp = get_lpips_fn(args)
+    assert next(lp.parameters()).device.type == "cuda"
+    with pytest.raises(RuntimeError), torch.inference_mode():
+        lp(2 * x - 1, 2 * x - 1)
+
+
+def test_flow_priors_remat_through_the_gn_kernel(cuda):
+    """The JVP checkpointed whole, recomputed in the gradient through the
+    GroupNorm kernel's forward-mode rule: the same result as without,
+    within 1e-5 of its max, with the kernel launched again in the
+    recomputation."""
+    from pnpflow_tpu_torch.ops.degradations import Denoising
+    from pnpflow_tpu_torch.solvers.base import ModelBundle
+    from pnpflow_tpu_torch.solvers.flow_priors import FlowPriors
+    from pnpflow_tpu_torch.utils.config import CfgNode
+
+    model = _randomized(VelocityUNet(**FLAGSHIP_64, fused_norm=True), 4)
+    model = model.to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(6)
+    clean = torch.rand(4, 64, 64, 3, generator=g, device=cuda) * 2 - 1
+    noisy = clean + 0.05 * torch.randn(clean.shape, generator=g, device=cuda)
+    x_init = torch.randn(clean.shape, generator=g, device=cuda)
+    out = {}
+    for remat in (False, True):
+        solver = FlowPriors(ModelBundle(model=model, device=cuda,
+                                        remat=remat),
+                            CfgNode(dict(N=2, K=1, lmbda=1000.0, eta=0.01,
+                                         start_time=0.0,
+                                         noise_type="gaussian")))
+        before = groupnorm_swish_fwd.launches
+        with solver.grad_mode():
+            x, _ = solver.solve_batch(clean, noisy, Denoising(), 0.05, 0,
+                                      x_init=x_init)
+        torch.cuda.synchronize()
+        out[remat] = (x, groupnorm_swish_fwd.launches - before)
+    assert float((out[True][0] - out[False][0]).abs().max()) <= 1e-5 * float(
+        out[False][0].abs().max())
+    sites = sum(isinstance(m, torch.nn.GroupNorm) for m in model.modules())
+    # N * K JVPs, each run once more in the gradient
+    assert out[False][1] > 0 and out[True][1] == out[False][1] + 2 * sites

@@ -10,10 +10,13 @@ import torch
 import yaml
 
 from pnpflow_tpu_torch.device import resolve_device
+from pnpflow_tpu_torch.metrics.lpips import get_lpips_fn
+from pnpflow_tpu_torch.models.inception import get_inception_fns
 from pnpflow_tpu_torch.models.registry import build_model_bundle
 from pnpflow_tpu_torch.ops.degradations import make_degradation
 from pnpflow_tpu_torch.utils.config import CfgNode, read_flat_yaml
 from pnpflow_tpu_torch.main import main
+from pnpflow_tpu_torch.serve import Restorer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "pnpflow_tpu")
@@ -66,6 +69,12 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
         main(["--opts", "dataset", "synthetic", "model", "rectified",
               "dim_image", "256", "fused_norm", "bm",
               "output_root", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Restorer(output_root=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_inception_fns(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_lpips_fn(args)
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -1,5 +1,9 @@
 """The port's ODE integrators and GMRES against the JAX package.
 
+The trainer's dopri5 sampler (``apply_flow_matching(method="dopri5")``)
+from JAX's z and the same parameters: within 1e-5 max-abs of JAX's, with
+the same number of model evaluations.
+
 Bounds: dopri5 within 1e-5 max-abs of JAX's ``_odeint_dopri5_stats`` with
 the same number of function evaluations, on the U-Net from t = 1 to 0 (the
 d_flow inversion) and on a linear field whose solution is known; euler,
@@ -26,6 +30,8 @@ from pnpflow_tpu_torch.models.unet import VelocityUNet
 from pnpflow_tpu_torch.ops import ode
 from pnpflow_tpu_torch.ops.degradations import Superresolution
 from pnpflow_tpu_torch.ops.linalg import gmres
+from pnpflow_tpu_torch.training import flow_matching as fm
+from pnpflow_tpu_torch.utils.config import CfgNode
 from pnpflow_tpu_torch.utils.jax_params import state_dict_from_flax
 
 CFG = dict(input_channels=3, input_height=32, ch=32, ch_mult=(1, 2),
@@ -107,6 +113,51 @@ def test_fixed_step_integrators_match_jax(method, field):
     want = np.asarray(want)
     assert np.abs(got.numpy() - want).max() <= 1e-6 * max(
         1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("method", ["euler", "midpoint", "heun", "dopri5"])
+def test_odeint_dispatches_like_jax(method):
+    jf, tf, x = _fields()["linear"]
+    want = jode.odeint(jf, jnp.asarray(x), 0.0, 1.0, method=method, steps=4)
+    got = ode.odeint(tf, torch.from_numpy(x), 0.0, 1.0, method=method,
+                     steps=4)
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= 1e-6 * max(
+        1.0, float(np.abs(want).max()))
+    with pytest.raises(ValueError, match="Unknown ODE method"):
+        ode.odeint(tf, torch.from_numpy(x), 0.0, 1.0, method="rk4")
+
+
+def test_trainer_dopri5_sampler_matches_jax(tmp_path):
+    """``apply_flow_matching(method="dopri5")`` samples as JAX's trainer
+    does from the z JAX draws from its key: JAX's method is
+    ``odeint_dopri5`` of the model from z, t = 0 to 1, rtol = atol = 1e-5
+    (``pnpflow_tpu/training/flow_matching.py:469-479``), run here through
+    ``_odeint_dopri5_stats``, which also gives its nfe."""
+    params, _, _ = _unet()
+    n, key = 2, jax.random.PRNGKey(3)
+    args = {"dataset": "synthetic", "model": "ot", "dim_image": 32,
+            "num_channels": 3, "lr": 1e-3, "num_epoch": 1, "seed": 0,
+            "output_root": str(tmp_path), "batch_size_train": 2}
+    z = np.asarray(jax.random.normal(key, (n, 32, 32, 3)))
+    jm = JaxUNet(**CFG)
+    want, want_nfe = jode._odeint_dopri5_stats(
+        lambda x, t: jm.apply(params, x, jnp.full((x.shape[0],), t,
+                                                   jnp.float32)),
+        jnp.asarray(z), 0.0, 1.0, rtol=1e-5, atol=1e-5)
+    want = np.asarray(want)
+
+    model = VelocityUNet(**CFG, fused_norm=True)
+    model.load_state_dict(state_dict_from_flax(params))
+    tr = fm.FlowMatchingTrainer(CfgNode(dict(args, device="cpu")),
+                                model=model)
+    state = fm.new_state(tr.model, tr.lr)
+    calls = []
+    tr.model.register_forward_pre_hook(lambda *a: calls.append(1))
+    got = tr.apply_flow_matching(state, n, method="dopri5", z=z)
+    assert len(calls) == int(want_nfe) and len(calls) > 7
+    assert np.abs(got.numpy() - want).max() <= 1e-5
+    with pytest.raises(ValueError, match="euler or dopri5"):
+        tr.apply_flow_matching(state, n, method="rk4", z=z)
 
 
 def test_dopri5_respects_max_steps():
