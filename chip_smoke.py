@@ -46,8 +46,8 @@ failure (nothing is caught and passed over) and prints its seconds:
    at 4, at 64x64 and 256x256, the card against the CPU;
 6. main path: the port's CLI, pnp_flow on synthetic images -- the U-Net at
    64x64 (FFT deblur; "conv" fp32 at 100 steps, "conv" bf16, True and "bm"
-   at 10) and the rectified NCSN++ at 256x256 (FFT deblur fp32 at 30 steps,
-   cut from 100 to keep the script near 10 minutes, bf16 at 10,
+   at 10) and the rectified NCSN++ at 256x256 (FFT deblur fp32 at 20 steps,
+   cut from 100 to keep the script within its time, bf16 at 10,
    super-resolution at 10) -- then ``train True eval True``:
    the flagship ``ot`` U-Net trained at 128x128, batch 128, exact OT, fp32,
    for 6 steps, and restored from the checkpoint it wrote (FFT deblur, 10
@@ -67,7 +67,8 @@ failure (nothing is caught and passed over) and prints its seconds:
    about 2 GB an image at 128x128, so 32 is the largest power of two that
    fits the card's 80 GB), then 10 pgd iterations from the checkpoint it
    wrote; pnp_diff with ``model diffusion`` (the full-width
-   DiffUNet at 256x256, 4 images): FFT deblurring at the default 100 steps
+   DiffUNet at 256x256, 4 images): FFT deblurring at 50 steps (cut from
+   the default 100 to make room for the rf_zoo phase)
    and laplace-noise inpainting (the L1 dual prox) at 10; every CLI run
    with ``lpips_alex.npz`` in place, so it reports LPIPS; then the metric
    stack: ``compute_metrics True`` with the flagship at 64x64 (1000 samples,
@@ -82,6 +83,21 @@ failure (nothing is caught and passed over) and prints its seconds:
    API (``Restorer``, pnp_flow at 64x64, 4 images, 100 steps: warmup and
    two seeded restores, bit for bit);
    every launch counter set to 0 before each run and read after;
+6c. rf_zoo: the rectified-flow entry point (``pnpflow_tpu_torch/rf_main.py``) on
+   the CelebA-HQ NCSN++ 256^2 config (nf 128, mult 1,1,2,2,2,2,2, 2 blocks,
+   attention at 16, FIR [1,3,3,1]): one train step at batch 1, card against
+   CPU on the same real-scale weights, z0 and t (loss rel 1e-5, gradients
+   1e-4 of each max); ``--mode train`` at batch 12 (cut from 64; the
+   largest of 8 or 12 that fits) for 5 steps on synthetic data from the
+   seeded init, ``sample`` (rk45, ode_tol 1e-5, 4 samples) from the state it
+   wrote, ``reflow`` with train_reflow and train_online_reflow (2
+   iterations each at batch 4, sample_N cut to 10; online generates in 20
+   Euler steps), ``generate_pairs`` (8) and bits/dim (4 images, 10 midpoint
+   steps, 1 probe, each a JVP: the FIR kernel on the tangent), every FIR
+   launch counted by role; then cifar10_rf_gaussian_ddpmpp (no FIR) trained
+   3 steps at its batch of 128 and its loss and gradients there, score_sde's
+   cifar10 DDPM and ncsnv2's CelebA NCSNv2 64^2 forwards, card against CPU
+   within 1e-4;
 7. timing: CUDA-event times of each kernel, its plain version and the
    PyTorch library call, per forward at the bench shapes (U-Net: 64x64, 64
    images x 5 Monte-Carlo samples, and for conv3x3_gn and both GroupNorm
@@ -126,9 +142,11 @@ FLAGSHIP = dict(input_channels=3, input_height=64, ch=32,
 RECT_DIM = 256          # the NCSN++ 256^2 (CelebA-HQ / AFHQ-Cat) defaults
 RECT_FIR_SITES = 36     # upfirdn2d calls per NCSN++ 256^2 forward
 RECT_FIR_NARROW = 12    # of which C = 3 (the image pyramids)
+RECT_FIR_TRAIN_ADJOINT = 30  # adjoint launches of a backward to the weights
+# only: the input pyramid's 6 downsamples have nothing to differentiate
 CLI_STEPS = 100         # main-path PnP steps: the CLI default
-RECT_CLI_STEPS = 30     # the rectified fp32 run, cut from 100 (about 140 s
-                        # on an H100) to keep the script near 10 minutes
+RECT_CLI_STEPS = 20     # the rectified fp32 run, cut from 100 (about 140 s
+                        # on an H100), to 20 to make room for the rf_zoo phase
 MAIN_BATCH = 4 * 5      # batch_size_ip x num_samples: images per forward
 BENCH_BATCH = 64 * 5    # the bench protocol: 64 images x 5 MC samples
 NCSNPP_REL_TOL = 1e-4   # NCSN++ card vs CPU, relative to max|out|, fp32
@@ -165,7 +183,8 @@ GS_EVAL_ITERS = 10      # pgd iterations restoring with the trained weights
 SYNTHETIC_TRAIN = 256   # images in the synthetic train split
 DIFF_DIM = 256          # the DiffUNet's geometry (DiffPIR ffhq_10m)
 DIFFUNET_PARITY_BATCH = 2
-PNP_DIFF_STEPS = 100    # pnp_diff max_iter, the default
+PNP_DIFF_STEPS = 50     # pnp_diff max_iter, cut from the default 100 to
+                        # make room for the rf_zoo phase
 PNP_DIFF_LAPLACE_STEPS = 10
 METRIC_N = 1000         # compute_metrics and FID-curve samples, cut from
                         # the protocol's 5000 to keep the script near 10 min
@@ -180,6 +199,19 @@ REMAT_LBFGS_ITER = 2    # d_flow's LBFGS iterations in its one step,
 REMAT_GS_ITERS = 3      # pnp_gs iterations
 METRIC_REL_TOL = 1e-4   # metrics.txt (card) against the CPU, relative
 # the synthetic Inception and seeded LPIPS weight files, written once
+RF_CONFIG = "celeba_hq_pytorch_rf_gaussian"   # the rf_zoo phase's config
+RF_BATCH = 12           # its training batch, cut from the config's 64
+RF_TRAIN_STEPS = 5
+RF_SAMPLES = 4          # rk45 at the config's ode_tol 1e-5
+RF_REFLOW_ITERS = 2     # each reflow mode,
+RF_REFLOW_BATCH = 4     # at this training.batch_size
+RF_SAMPLE_N = 10        # sampling.sample_N of reflow and pairs, cut from 1000
+RF_ONLINE_GEN = 20      # online reflow's Euler steps (the JAX default)
+RF_PAIRS = 8            # reflow.total_number_of_samples
+RF_BPD_BATCH = 4        # bits/dim: images, midpoint steps (cut from 100),
+RF_BPD_STEPS = 10       # and one probe
+CIFAR_BATCH = 128       # cifar10_rf_gaussian_ddpmpp's training.batch_size
+RF_REL_TOL = 1e-4       # the small configs card vs CPU, relative to max
 METRIC_WEIGHTS = {}
 
 
@@ -1508,7 +1540,7 @@ def save_diffunet_checkpoint(state, directory):
 def pnp_diff_path(torch, ckpt):
     """pnp_diff through the CLI: ``model diffusion dim_image 256`` (the
     full-width DiffUNet, float32, real-scale random weights from the
-    msgpack ``ckpt``), 4 images: FFT deblurring at the default 100 steps,
+    msgpack ``ckpt``), 4 images: FFT deblurring at PNP_DIFF_STEPS,
     and box inpainting under laplace noise (the 100-iteration L1 dual prox
     a step) at PNP_DIFF_LAPLACE_STEPS.  No kernel of the repository runs."""
     diff = ["model", "diffusion", "dim_image", str(DIFF_DIM)]
@@ -1737,7 +1769,11 @@ def remat_run(torch, name, opts, kernel, rect_ckpt):
     within 1e-5 of max, and each run's peak memory (from a reset after the
     model is built, so both hold the weights), seconds and launches; under
     remat the forwards that a gradient reaches run again (flow_priors: the
-    whole JVP), so ``kernel`` launches more."""
+    whole JVP), so ``kernel`` launches more.  Both solves take cuDNN's
+    deterministic algorithms: its default ones may add with atomics, in an
+    order that changes from run to run, and the NCSN++ flow_priors solve
+    on random weights (PSNR about 4.5 dB) grows that rounding to 3e-3 of
+    max, which says nothing of remat."""
     from pnpflow_tpu_torch.data import DataLoaders
     from pnpflow_tpu_torch.models.registry import build_model_bundle
     from pnpflow_tpu_torch.ops.degradations import make_degradation
@@ -1751,6 +1787,8 @@ def remat_run(torch, name, opts, kernel, rect_ckpt):
         "synthetic", DIFF_BATCH, DIFF_BATCH, dim_image=dim,
         num_channels=3).load_data()["test"]))[0]
     res = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     with tempfile.TemporaryDirectory() as root:
         if "rectified" in opts:
             ck = os.path.join(root, "model", "synthetic", "rectified")
@@ -1782,6 +1820,7 @@ def remat_run(torch, name, opts, kernel, rect_ckpt):
                               torch.cuda.max_memory_allocated(),
                           "launches": read_counts(), "fir_roles": fir_roles()}
             del bundle, solver, deg
+    torch.backends.cudnn.deterministic = deterministic
     a, b = res[False].pop("x"), res[True].pop("x")
     err = float((b - a).abs().max()) / float(a.abs().max())
     check(err <= 1e-5, f"remat {name}: {err:.3e} of max")
@@ -1866,6 +1905,346 @@ def serve_path(torch):
     check(launches == expect, f"serve: launches {launches}, expected {expect}")
     return {"steps": SERVE_STEPS, "images": 4, "warmup_seconds": times[0],
             "seconds_per_restore": times[1:], "launches": launches}
+
+
+# ------------------------------------------------- 6c. the rectified-flow zoo
+def _real_scale(torch, m, seed):
+    """Every trainable parameter of ``m`` at a real scale (as
+    :func:`randomized_ncsnpp_state`): GroupNorm scales near 1, other vectors
+    small, weights ~ 1/sqrt(fan_in); frozen ones and buffers kept."""
+    import torch.nn as nn
+
+    norms = {id(mod.weight) for mod in m.modules()
+             if isinstance(mod, nn.GroupNorm)}
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if not p.requires_grad:
+                continue
+            if id(p) in norms:
+                p.copy_(1.0 + 0.2 * torch.randn(p.shape, generator=g))
+            elif p.dim() == 1:
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+            else:
+                fan_in = p.shape[0] if name.endswith(".W") else p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=g) / fan_in ** 0.5)
+    return m
+
+
+def _grad_parity(torch, gw, gg, what):
+    """Each gradient within 1e-4 of its tensor's max, under the NOISE_FLOOR
+    rule of the training parity; returns the worst relative error."""
+    floor = NOISE_FLOOR * max(float(v.abs().max()) for v in gw.values())
+    worst = 0.0
+    for k, w in gw.items():
+        scale = float(w.abs().max())
+        if scale < floor:
+            check(float(gg[k].abs().max()) < floor, f"{what}: {k} noise")
+            continue
+        err = float((gg[k] - w).abs().max()) / scale
+        check(math.isfinite(err) and err <= 1e-4,
+              f"{what}: {k} gradient rel err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def _rf_loss_and_grads(torch, rf, z0, x1, t):
+    from pnpflow_tpu_torch.training.flow_matching import make_fm_loss
+
+    loss = make_fm_loss(rf)(z0, x1, t)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().cpu()
+                         for n, p in rf.named_parameters()
+                         if p.grad is not None}
+
+
+def rf_step_parity(torch, dev, rect_state):
+    """One rf_main train step's loss and gradients (the flow-matching loss
+    through ``RFModel``, t * 999) of the CelebA-HQ NCSN++ 256^2 at batch 1
+    on the card (upfirdn2d forward and adjoint) against the CPU (plain FIR),
+    with the same real-scale weights, z0 and t: loss within 1e-5 relative,
+    every gradient within 1e-4 of its max."""
+    from pnpflow_tpu_torch.config.rf_configs import get_config
+    from pnpflow_tpu_torch.rf_main import _model
+
+    cfg = get_config(RF_CONFIG)
+    g = torch.Generator().manual_seed(41)
+    z0 = torch.randn(1, RECT_DIM, RECT_DIM, 3, generator=g)
+    x1 = torch.tanh(torch.randn(z0.shape, generator=g))
+    t = torch.tensor([0.37])
+    out = {}
+    for d in ("cpu", dev):
+        rf = _model(cfg, torch.device(d))
+        # the config's sigmas table (num_scales 2000) is the module's own;
+        # the Fourier embedding never reads it
+        rf.model.load_state_dict(dict(rect_state, sigmas=rf.model.sigmas))
+        reset_counts()
+        out[str(d)] = _rf_loss_and_grads(torch, rf, z0.to(d), x1.to(d),
+                                         t.to(d))
+        if d == dev:
+            torch.cuda.synchronize()
+            launches, roles = read_counts(), fir_roles()
+        del rf
+    (lw, gw), (lg, gg) = out["cpu"], out[str(dev)]
+    rel = abs(lg - lw) / abs(lw)
+    check(math.isfinite(lg) and rel <= 1e-5,
+          f"rf step parity: loss {lg} vs {lw}, rel {rel}")
+    worst = _grad_parity(torch, gw, gg, "rf step parity")
+    check(launches == only(upfirdn2d=RECT_FIR_SITES + RECT_FIR_TRAIN_ADJOINT)
+          and roles == {"forward": RECT_FIR_SITES,
+                        "adjoint": RECT_FIR_TRAIN_ADJOINT, "tangent": 0},
+          f"rf step parity launches {launches}, roles {roles}")
+    emit({"rf_zoo": "step_parity", "config": RF_CONFIG, "batch": 1,
+          "loss": lg, "loss_rel_err": rel, "grad_worst_rel_err": worst,
+          "tolerances": {"loss_rel": 1e-5, "grad_rel_of_tensor_max": 1e-4,
+                         "noise_floor_of_max_grad": NOISE_FLOOR},
+          "launches": launches, "fir_roles": roles})
+    torch.cuda.empty_cache()
+
+
+def rf_run(torch, name, argv, expect_fir):
+    """One ``python -m pnpflow_tpu_torch.rf_main`` call in-process, every
+    count set to 0 just before and read just after: host seconds to its end
+    (it ends reading the device), peak memory, launches, FIR roles and
+    paths, and the mode's own statistics.  ``expect_fir(stats)`` gives the
+    NCSN++ forwards, backwards to the weights and tangents the run must have
+    launched the FIR kernel for (RECT_FIR_SITES, RECT_FIR_TRAIN_ADJOINT and
+    RECT_FIR_SITES launches each), none on the general path."""
+    from pnpflow_tpu_torch.rf_main import main
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = main(argv)
+    torch.cuda.synchronize()
+    r = {"seconds": time.perf_counter() - t0,
+         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+         "launches": read_counts(), "fir_roles": fir_roles(),
+         "fir_paths": fir_paths(), **stats}
+    fwd, bwd, tan = expect_fir(stats)
+    want = {"forward": RECT_FIR_SITES * fwd,
+            "adjoint": RECT_FIR_TRAIN_ADJOINT * bwd,
+            "tangent": RECT_FIR_SITES * tan}
+    check(r["launches"] == only(upfirdn2d=sum(want.values()))
+          and r["fir_roles"] == want and r["fir_paths"]["general"] == 0,
+          f"rf_zoo/{name}: launches {r['launches']}, roles "
+          f"{r['fir_roles']}, paths {r['fir_paths']}, expected {want}")
+    emit({"rf_zoo": name, "argv": argv, **r})
+    return r
+
+
+def rf_likelihood(torch, dev, wd):
+    """bits/dim of RF_BPD_BATCH synthetic images under the trained state:
+    RF_BPD_STEPS midpoint steps, one Rademacher probe, each a
+    ``torch.func.jvp`` (the FIR kernel on the tangent)."""
+    from pnpflow_tpu_torch.config.rf_configs import get_config
+    from pnpflow_tpu_torch.data.datasets import synthetic_images
+    from pnpflow_tpu_torch.ops.likelihood import bits_per_dim
+    from pnpflow_tpu_torch.rf_main import _load_or_init, _model
+
+    rf = _model(get_config(RF_CONFIG), dev)
+    _load_or_init(rf, wd)
+    x = torch.from_numpy(synthetic_images(RF_BPD_BATCH, RECT_DIM, 3,
+                                          seed=5)).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    bpd = bits_per_dim(rf, x, torch.Generator(device=dev).manual_seed(0),
+                       steps=RF_BPD_STEPS, n_probes=1).cpu()
+    seconds = time.perf_counter() - t0
+    r = {"seconds": seconds, "batch": RF_BPD_BATCH, "steps": RF_BPD_STEPS,
+         "probes": 1, "bits_per_dim": bpd.tolist(),
+         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+         "launches": read_counts(), "fir_roles": fir_roles()}
+    check(bool(torch.isfinite(bpd).all()), f"bits/dim not finite: {bpd}")
+    # a step: the velocity at its start, then one JVP at its midpoint
+    want = {"forward": 2 * RECT_FIR_SITES * RF_BPD_STEPS, "adjoint": 0,
+            "tangent": RECT_FIR_SITES * RF_BPD_STEPS}
+    check(r["fir_roles"] == want, f"likelihood roles {r['fir_roles']}")
+    emit({"rf_zoo": "likelihood", **r})
+    del rf
+    return r
+
+
+def rf_small_parity(torch, dev):
+    """The smaller configurations, card against CPU within RF_REL_TOL of
+    max: the cifar10_rf_gaussian_ddpmpp loss and gradients at its batch of
+    128 (no FIR: fir False), the DDPM of score_sde's
+    ``configs/vp/ddpm/cifar10.py`` (nf 128, mult 1,2,2,2, 2 blocks,
+    attention at 16, 32x32) and the NCSNv2 of ncsnv2's
+    ``configs/celeba.yml`` (ngf 128, 64x64, 500 noise scales): one forward
+    each; every parameter at a real scale."""
+    from pnpflow_tpu_torch.config.rf_configs import get_config
+    from pnpflow_tpu_torch.models.zoo import create_model, init_model
+    from pnpflow_tpu_torch.rf_main import RFModel
+
+    res = {}
+    cfg = get_config("cifar10_rf_gaussian_ddpmpp")
+    state = _real_scale(torch, create_model(cfg), 51).state_dict()
+    g = torch.Generator().manual_seed(52)
+    z0 = torch.randn(CIFAR_BATCH, 32, 32, 3, generator=g)
+    x1 = torch.tanh(torch.randn(z0.shape, generator=g))
+    t = torch.rand(CIFAR_BATCH, generator=g)
+    out = {}
+    for d in ("cpu", dev):
+        m = create_model(cfg)
+        m.load_state_dict(state)
+        reset_counts()
+        out[str(d)] = _rf_loss_and_grads(torch, RFModel(m).to(d).eval(),
+                                         z0.to(d), x1.to(d), t.to(d))
+        del m
+    launches = read_counts()
+    (lw, gw), (lg, gg) = out["cpu"], out[str(dev)]
+    rel = abs(lg - lw) / abs(lw)
+    check(rel <= RF_REL_TOL, f"cifar10 ddpmpp loss rel err {rel}")
+    res["cifar10_ddpmpp_step"] = {
+        "batch": CIFAR_BATCH, "loss_rel_err": rel,
+        "grad_worst_rel_err": _grad_parity(torch, gw, gg, "cifar10 ddpmpp"),
+        "launches": launches}
+    check(launches == only(), f"cifar10 ddpmpp launches {launches}")
+    del out, gw, gg
+
+    ddpm = get_config("cifar10_rf_gaussian_ddpmpp")
+    ddpm.model.update(dict(name="ddpm", ch_mult=(1, 2, 2, 2),
+                           num_res_blocks=2, dropout=0.1,
+                           scale_by_sigma=False, ema_rate=0.9999))
+    ncsnv2 = get_config("cifar10_rf_gaussian_ddpmpp")
+    ncsnv2.data.update(dict(image_size=64, centered=False))
+    ncsnv2.model.update(dict(name="ncsnv2_64", nf=128,
+                             normalization="InstanceNorm++",
+                             nonlinearity="elu", sigma_max=90.0,
+                             sigma_min=0.01, num_scales=500))
+    for name, cfg, n, dim, labels, real in (
+            ("ddpm_cifar10", ddpm, 16, 32, 1000, True),
+            ("ncsnv2_64_celeba", ncsnv2, 8, 64, 500, False)):
+        m = init_model(create_model(cfg), seed=53)
+        if real:
+            _real_scale(torch, m, 54)
+        g = torch.Generator().manual_seed(55)
+        x = torch.rand(n, dim, dim, 3, generator=g) * 2 - 1
+        y = torch.randint(0, labels, (n,), generator=g)
+        with torch.inference_mode():
+            want = m.eval()(x, y)
+            t0 = time.perf_counter()
+            got = m.to(dev)(x.to(dev), y.to(dev)).cpu()
+            seconds = time.perf_counter() - t0
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / scale
+        check(bool(torch.isfinite(got).all()) and scale > 1e-3
+              and err <= RF_REL_TOL, f"{name} card vs CPU: rel err {err}")
+        res[name] = {"batch": n, "image": dim, "rel_err": err,
+                     "max_abs_out": scale, "first_forward_seconds": seconds,
+                     "num_params": sum(p.numel() for p in m.parameters())}
+        del m
+    emit({"rf_zoo": "small_configs", "rel_tol": RF_REL_TOL, **res})
+    torch.cuda.empty_cache()
+    return res
+
+
+def rf_zoo_path(torch, dev, rect_state):
+    """``rf_main`` on the CelebA-HQ NCSN++ 256^2 (nf 128,
+    mult 1,1,2,2,2,2,2, 2 blocks, attention at 16, FIR [1,3,3,1]): the
+    batch-1 step parity, ``--mode train`` at RF_BATCH for RF_TRAIN_STEPS on
+    synthetic data from the seeded init, ``sample`` (rk45, ode_tol 1e-5) from
+    the state it wrote, ``reflow`` (train_reflow and train_online_reflow),
+    ``generate_pairs`` and bits/dim; then the smaller configurations.
+    Returns the runs, for the kernels line."""
+    runs = {}
+    with phase("rf_zoo/step_parity"):
+        rf_step_parity(torch, dev, rect_state)
+    with tempfile.TemporaryDirectory() as wd:
+        base = ["--config", RF_CONFIG, "--workdir", wd]
+        opts = ["--opts", "training.batch_size", str(RF_BATCH),
+                "sampling.sample_N", str(RF_SAMPLE_N)]
+        with phase("rf_zoo/train"):
+            r = rf_run(torch, "train", base + [
+                "--mode", "train", "--n_iters", str(RF_TRAIN_STEPS)] + opts,
+                lambda st: (RF_TRAIN_STEPS, RF_TRAIN_STEPS, 0))
+        check(len(r["losses"]) == RF_TRAIN_STEPS
+              and all(map(math.isfinite, r["losses"]))
+              and os.path.exists(os.path.join(wd, "state.msgpack")),
+              f"rf train: {r['losses']}")
+        step_s = statistics.median(r["step_seconds"][1:])
+        r.update(batch=RF_BATCH, seconds_per_step=step_s,
+                 images_per_s=RF_BATCH / step_s)
+        emit({"rf_zoo": "train_summary", "batch": RF_BATCH,
+              "seconds_per_step": step_s, "images_per_s": RF_BATCH / step_s,
+              "max_memory_allocated": r["max_memory_allocated"]})
+        runs["rf_train"] = r
+
+        with phase("rf_zoo/sample"):
+            r = rf_run(torch, "sample", base + [
+                "--mode", "sample", "--n_samples", str(RF_SAMPLES)] + opts,
+                lambda st: (st["nfe"], 0, 0))
+        import numpy as np
+
+        samples = np.load(os.path.join(wd, "samples.npz"))["samples"]
+        check(samples.shape == (RF_SAMPLES, RECT_DIM, RECT_DIM, 3)
+              and np.isfinite(samples).all()
+              and os.path.exists(os.path.join(wd, "samples.png")),
+              f"rf sample: {samples.shape}")
+        runs["rf_sample"] = r
+
+        reflow = ["training.batch_size", str(RF_REFLOW_BATCH),
+                  "reflow.reflow_loss", "l2"]
+        with phase("rf_zoo/reflow"):
+            runs["rf_reflow"] = rf_run(torch, "reflow", base + [
+                "--mode", "reflow", "--n_iters", str(RF_REFLOW_ITERS)]
+                + opts + reflow + ["reflow.reflow_type", "train_reflow",
+                                   "reflow.reflow_t_schedule", "uniform"],
+                lambda st: (RF_REFLOW_ITERS * (RF_SAMPLE_N + 1),
+                            RF_REFLOW_ITERS, 0))
+        with phase("rf_zoo/online_reflow"):
+            runs["rf_online_reflow"] = rf_run(torch, "online_reflow", base + [
+                "--mode", "reflow", "--n_iters", str(RF_REFLOW_ITERS)]
+                + opts + reflow + ["reflow.reflow_type",
+                                   "train_online_reflow",
+                                   "reflow.reflow_t_schedule", "t0"],
+                lambda st: (RF_REFLOW_ITERS * (RF_ONLINE_GEN + 1),
+                            RF_REFLOW_ITERS, 0))
+        for k in ("rf_reflow", "rf_online_reflow"):
+            check(all(map(math.isfinite, runs[k]["losses"])),
+                  f"{k}: losses {runs[k]['losses']}")
+        with phase("rf_zoo/pairs"):
+            runs["rf_pairs"] = rf_run(torch, "pairs", base + [
+                "--mode", "generate_pairs"] + opts + [
+                "reflow.total_number_of_samples", str(RF_PAIRS)],
+                lambda st: (RF_SAMPLE_N, 0, 0))
+        pairs = np.load(os.path.join(wd, "reflow_pairs.npz"))
+        check(pairs["z0"].shape == pairs["x1"].shape == (
+            RF_PAIRS, RECT_DIM, RECT_DIM, 3) and np.isfinite(
+                pairs["x1"]).all(), "rf pairs: shapes or values")
+        with phase("rf_zoo/likelihood"):
+            runs["rf_likelihood"] = rf_likelihood(torch, dev, wd)
+
+    with tempfile.TemporaryDirectory() as wd:
+        with phase("rf_zoo/cifar10_train"):
+            r = rf_run(torch, "cifar10_train", [
+                "--config", "cifar10_rf_gaussian_ddpmpp", "--workdir", wd,
+                "--mode", "train", "--n_iters", "3"], lambda st: (0, 0, 0))
+        step_s = statistics.median(r["step_seconds"][1:])
+        r.update(batch=CIFAR_BATCH, seconds_per_step=step_s,
+                 images_per_s=CIFAR_BATCH / step_s)
+        check(all(map(math.isfinite, r["losses"])), "cifar10 train losses")
+        runs["rf_cifar10_train"] = r
+    with phase("rf_zoo/small_configs"):
+        rf_small_parity(torch, dev)
+    emit({"rf_zoo": "cuts", "config": RF_CONFIG,
+          "reduced": {"training.batch_size": [64, RF_BATCH],
+                      "train steps": RF_TRAIN_STEPS,
+                      "samples": RF_SAMPLES,
+                      "reflow iterations": RF_REFLOW_ITERS,
+                      "reflow training.batch_size": [64, RF_REFLOW_BATCH],
+                      "sampling.sample_N": [1000, RF_SAMPLE_N],
+                      "reflow.total_number_of_samples": RF_PAIRS,
+                      "likelihood steps": [100, RF_BPD_STEPS],
+                      "likelihood images": RF_BPD_BATCH,
+                      "weights": "seeded init (train, sample, reflow, "
+                                 "pairs, likelihood); real-scale random "
+                                 "(parity)"}})
+    return runs
 
 
 # --------------------------------------------------------------- 7. timing
@@ -2585,6 +2964,8 @@ def main():
         with phase("main_path/serve"):
             runs["serve"] = serve_path(torch)
         emit({"main_path": "serve", **runs["serve"]})
+    with phase("rf_zoo"):
+        runs.update(rf_zoo_path(torch, dev, rect_state))
     launches["groupnorm_swish"] += train["launches"]["groupnorm_swish"]
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")

@@ -78,6 +78,11 @@ class LPIPS(nn.Module):
         self.requires_grad_(False)
 
     def forward(self, x, y):
+        return self.distances(x, y).mean()
+
+    def distances(self, x, y):
+        """The per-image distances, (B,): what reflow's LPIPS losses take
+        (their gradient in x runs through the plain convolutions)."""
         n = x.shape[0]
         # both images through the trunk as one batch
         h = torch.cat([x, y]).permute(0, 3, 1, 2).float()
@@ -91,7 +96,7 @@ class LPIPS(nn.Module):
                 dim=1).mean(dim=(1, 2))
             if i in _POOL_AFTER:
                 h = F.max_pool2d(h, 3, stride=2)
-        return total.mean()
+        return total
 
 
 def get_lpips_fn(args, device=None):

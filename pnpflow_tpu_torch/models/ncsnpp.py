@@ -505,6 +505,30 @@ def make_ncsnpp(args, dtype=torch.float32) -> NCSNpp:
                   dtype=dtype)
 
 
+
+def make_ncsnpp_from_config(config, dtype=torch.float32) -> NCSNpp:
+    """NCSN++ from a reference-shaped config tree (the ``model.*`` and
+    ``data.*`` keys of ``config/rf_configs.py``), as the JAX
+    ``make_ncsnpp_from_config``: both resblock types, either embedding,
+    ``fir`` True or False, the progressive pyramids or none."""
+    m, d = config.model, config.data
+    return NCSNpp(
+        image_size=d.image_size, num_channels=d.num_channels, nf=m.nf,
+        ch_mult=tuple(m.ch_mult), num_res_blocks=m.num_res_blocks,
+        attn_resolutions=tuple(m.attn_resolutions), dropout=m.dropout,
+        resamp_with_conv=m.resamp_with_conv, conditional=m.conditional,
+        fir=m.fir, fir_kernel=tuple(m.fir_kernel),
+        skip_rescale=m.skip_rescale,
+        resblock_type=m.get("resblock_type", "biggan"),
+        progressive=m.progressive, progressive_input=m.progressive_input,
+        progressive_combine=m.progressive_combine,
+        embedding_type=m.get("embedding_type", "fourier"),
+        fourier_scale=m.fourier_scale, init_scale=m.init_scale,
+        scale_by_sigma=m.scale_by_sigma,
+        sigma_min=m.get("sigma_min", 0.01), sigma_max=m.get("sigma_max", 50.0),
+        num_scales=m.get("num_scales", 1000),
+        centered=d.get("centered", True), dtype=dtype)
+
 @torch.no_grad()
 def init_ncsnpp(model: NCSNpp, seed: int = 0) -> NCSNpp:
     """Seeded init following the JAX ``vs_init``: variance-scaling fan_avg

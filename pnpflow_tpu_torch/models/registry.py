@@ -67,7 +67,8 @@ def define_model(args, dtype=torch.float32, train: bool = False) -> nn.Module:
     if args.model == "rectified":
         if train:
             raise NotImplementedError(
-                "NCSN++ training is not ported yet (ROADMAP queue 1, item 14)")
+                "the CLI does not train the NCSN++: its trainer is "
+                "python -m pnpflow_tpu_torch.rf_main --mode train")
         return make_ncsnpp(args, dtype=dtype)
     if args.model == "diffusion":
         if train:
@@ -241,7 +242,10 @@ def _state_dict_from_tree(module, tree) -> dict:
 def _torch_state_dict(path: str) -> dict:
     """A ``.pt``/``.pth`` state_dict: the U-Net's own, a
     ``{"model_state_dict": ...}`` wrapper, or a RectifiedFlow
-    ``{model, ema, optimizer, step}`` checkpoint (``module.`` stripped)."""
+    ``{model, ema, optimizer, step}`` checkpoint (``module.`` stripped).
+    Its ``model`` weights only: for the EMA weights convert it with
+    ``python -m pnpflow_tpu_torch.utils.ncsnpp_convert --ema`` into
+    ``model_final.msgpack``."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "model_state_dict" in sd:
         sd = sd["model_state_dict"]

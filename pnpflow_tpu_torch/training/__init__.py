@@ -1,1 +1,2 @@
-"""Trainers: flow matching and the gradient-step denoiser."""
+"""Trainers (flow matching, the gradient-step denoiser, reflow) and the
+rectified-flow samplers."""

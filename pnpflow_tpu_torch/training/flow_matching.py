@@ -198,6 +198,17 @@ def euler_sample_stochastic(model, shape, steps: int = 100,
     ``step_noise`` (``steps`` draws of ``shape``) replace the draws from
     ``generator``."""
     x = noise_scale * _normal(shape, generator, device, noise)
+    return euler_stochastic_from(model, x, steps, sigma_var, noise_scale,
+                                 eps, generator, step_noise)
+
+
+@torch.no_grad()
+def euler_stochastic_from(model, x, steps: int = 100, sigma_var: float = 0.0,
+                          noise_scale: float = 1.0, eps: float = 1e-3,
+                          generator=None, step_noise=None):
+    """:func:`euler_sample_stochastic`'s integration from a given start
+    ``x``; ``noise_scale`` still sets the drift's correction."""
+    shape = tuple(x.shape)
     dt = 1.0 / steps
     # the scalars in float32, operation by operation, as the JAX sampler
     # computes them

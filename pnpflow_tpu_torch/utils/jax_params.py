@@ -11,9 +11,13 @@ reference torch layout that the port's modules use.
 own copy of ``convert_unet_state_dict``'s mapping), and
 :func:`flax_adam_state` / :func:`adam_state_dict_from_flax` carry
 ``torch.optim.Adam``'s moments to optax's ``adam`` state and back.
+:func:`flax_from_ncsnpp_state_dict` is the NCSN++'s way back (the
+``state.msgpack`` of ``rf_main``).
 :func:`diffunet_state_dict_from_flax` and :func:`flax_from_diffunet_state_dict`
-carry the DiffUNet both ways: its torch names are the flax module paths
-joined by dots, so only the leaves change.
+carry the DiffUNet both ways, and :func:`ncsnv2_state_dict_from_flax` and
+:func:`flax_from_ncsnv2_state_dict` the NCSN family (which JAX has no
+converter for): their torch names are the flax module paths joined by dots,
+so only the leaves change.
 
   flax Conv kernel (kH, kW, I, O) -> torch Conv2d weight (O, I, kH, kW)
   flax Dense kernel (in, out)     -> torch Linear weight (out, in)
@@ -142,6 +146,79 @@ def ncsnpp_state_dict_from_flax(params, sigmas=None) -> dict:
         out["sigmas"] = torch.as_tensor(sigmas, dtype=torch.float32).cpu()
     return out
 
+
+
+def flax_from_ncsnpp_state_dict(sd) -> dict:
+    """The inverse of :func:`ncsnpp_state_dict_from_flax`: the port's
+    NCSN++ ``state_dict`` (``all_modules.{i}.<path>``) -> the JAX
+    ``NCSNpp``'s ``{"params": tree}`` of C-contiguous float32 numpy arrays,
+    module ``all_modules.{i}`` becoming ``m{i}``.  The ``sigmas`` buffer has
+    no flax counterpart and is left out.  Raises on any other key."""
+    tree: dict = {}
+    for key, value in sd.items():
+        if key == "sigmas":
+            continue
+        parts = key.split(".")
+        if parts[0] != "all_modules" or not parts[1].isdigit():
+            raise KeyError(f"unrecognized NCSN++ parameter {key!r}")
+        v = value.detach().float().cpu().numpy()
+        path, leaf = ["m" + parts[1]] + parts[2:-1], parts[-1]
+        if path[-1] == "Conv2d_0":    # a FIR resampler's own conv leaves
+            path, leaf = path[:-1], "Conv2d_0_" + leaf
+            v = v.transpose(2, 3, 1, 0) if leaf.endswith("weight") else v
+        elif leaf not in ("W", "b"):
+            leaf, v = _flax_leaf(leaf, v)
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(v)
+    return {"params": tree}
+
+
+# NCSN-family leaves that keep their flax name and layout
+_NCSN_PLAIN = ("alpha", "gamma", "beta", "embed")
+
+
+def ncsnv2_state_dict_from_flax(params) -> dict:
+    """A JAX ``NCSN`` / ``NCSNv2*`` ``{"params": tree}`` (or the bare tree)
+    -> the port's ``state_dict``: the port's modules carry the flax names,
+    so a path becomes dotted; a conv ``kernel`` (kH, kW, I, O) becomes an
+    (O, I, kH, kW) ``weight``, a GroupNorm ``scale`` its weight; the norms'
+    ``alpha`` / ``gamma`` / ``beta`` and class tables ``embed`` carry over
+    as they are.  The ``sigmas`` buffer is the module's own."""
+    tree = params.get("params", params)
+    out = {}
+
+    def walk(node, path):
+        for name, child in node.items():
+            if isinstance(child, dict):
+                walk(child, path + (name,))
+                continue
+            if name in _NCSN_PLAIN:
+                key, arr = name, np.asarray(child, dtype=np.float32)
+            else:
+                key, arr = _leaf(name, child)
+            out[".".join(path + (key,))] = torch.from_numpy(np.array(arr))
+
+    walk(tree, ())
+    return out
+
+
+def flax_from_ncsnv2_state_dict(sd) -> dict:
+    """The inverse of :func:`ncsnv2_state_dict_from_flax` (``sigmas`` left
+    out)."""
+    tree: dict = {}
+    for key, value in sd.items():
+        if key == "sigmas":
+            continue
+        prefix, leaf = key.rsplit(".", 1)
+        v = value.detach().float().cpu().numpy()
+        name, arr = (leaf, v) if leaf in _NCSN_PLAIN else _flax_leaf(leaf, v)
+        node = tree
+        for p in prefix.split("."):
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(arr)
+    return {"params": tree}
 
 def diffunet_state_dict_from_flax(params) -> dict:
     """flax DiffUNet ``{"params": tree}`` (or the bare tree) -> the port's
