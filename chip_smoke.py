@@ -46,7 +46,7 @@ failure (nothing is caught and passed over) and prints its seconds:
    at 4, at 64x64 and 256x256, the card against the CPU;
 6. main path: the port's CLI, pnp_flow on synthetic images -- the U-Net at
    64x64 (FFT deblur; "conv" fp32 at 100 steps, "conv" bf16, True and "bm"
-   at 10) and the rectified NCSN++ at 256x256 (FFT deblur fp32 at 20 steps,
+   at 10) and the rectified NCSN++ at 256x256 (FFT deblur fp32 at 10 steps,
    cut from 100 to keep the script within its time, bf16 at 10,
    super-resolution at 10) -- then ``train True eval True``:
    the flagship ``ot`` U-Net trained at 128x128, batch 128, exact OT, fp32,
@@ -67,8 +67,8 @@ failure (nothing is caught and passed over) and prints its seconds:
    about 2 GB an image at 128x128, so 32 is the largest power of two that
    fits the card's 80 GB), then 10 pgd iterations from the checkpoint it
    wrote; pnp_diff with ``model diffusion`` (the full-width
-   DiffUNet at 256x256, 4 images): FFT deblurring at 50 steps (cut from
-   the default 100 to make room for the rf_zoo phase)
+   DiffUNet at 256x256, 4 images): FFT deblurring at 25 steps (cut from
+   the default 100 to make room for the rf_zoo and parallel phases)
    and laplace-noise inpainting (the L1 dual prox) at 10; every CLI run
    with ``lpips_alex.npz`` in place, so it reports LPIPS; then the metric
    stack: ``compute_metrics True`` with the flagship at 64x64 (1000 samples,
@@ -98,6 +98,21 @@ failure (nothing is caught and passed over) and prints its seconds:
    3 steps at its batch of 128 and its loss and gradients there, score_sde's
    cifar10 DDPM and ncsnv2's CelebA NCSNv2 64^2 forwards, card against CPU
    within 1e-4;
+6d. parallel (this slice: data parallelism, the backends, the profiler and
+   the demos): the FM trainer step (the 128^2 flagship, fused_norm True,
+   batch 128, precoupled exact OT) and the GS trainer step (batch 32), 3
+   steps each without a process group and under ``init_distributed`` at
+   world size 1 over NCCL, equal bit for bit (cuDNN deterministic);
+   ``Restorer(shard=True, n_devices=1)`` against ``shard=False`` (bit for
+   bit) and two shards on the one card (two threads, within 1e-4);
+   ``ComputeMetric`` with the sampler and the Inception chunker fanned out
+   over two copies on the card (n 100); ``train True`` through the CLI on
+   a generated CelebA-layout folder at 128^2 with ``data_backend grain``
+   and ``ckpt_backend orbax`` (2 epochs, a resume to 4, retention of 3);
+   one forward per ``fused_norm`` "dot", "tview" and "bf16stats", fp32
+   and bf16, against False, with its time; the three demos at shrunk knobs;
+   and, after the profiles of 8., a ``jax_profile`` restoration and the
+   report's top ops;
 7. timing: CUDA-event times of each kernel, its plain version and the
    PyTorch library call, per forward at the bench shapes (U-Net: 64x64, 64
    images x 5 Monte-Carlo samples, and for conv3x3_gn and both GroupNorm
@@ -113,7 +128,9 @@ failure (nothing is caught and passed over) and prints its seconds:
    of one float32 NCSN++ forward, and one train step of the 128x128
    flagship at batch 128, split into forward, backward, Adam and EMA.
 
-JSON lines precede the last line, which is
+Before the result, the script stops the grain workers' forkserver and
+resource tracker and fails if any process it started still runs (and kills
+it).  JSON lines precede the last line, which is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -125,6 +142,7 @@ import importlib.util
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -145,8 +163,9 @@ RECT_FIR_NARROW = 12    # of which C = 3 (the image pyramids)
 RECT_FIR_TRAIN_ADJOINT = 30  # adjoint launches of a backward to the weights
 # only: the input pyramid's 6 downsamples have nothing to differentiate
 CLI_STEPS = 100         # main-path PnP steps: the CLI default
-RECT_CLI_STEPS = 20     # the rectified fp32 run, cut from 100 (about 140 s
-                        # on an H100), to 20 to make room for the rf_zoo phase
+RECT_CLI_STEPS = 10     # the rectified fp32 run, cut from 100 (about 140 s
+                        # on an H100), to 20 for the rf_zoo phase and to 10
+                        # for the parallel phase (about 1.4 s a step)
 MAIN_BATCH = 4 * 5      # batch_size_ip x num_samples: images per forward
 BENCH_BATCH = 64 * 5    # the bench protocol: 64 images x 5 MC samples
 NCSNPP_REL_TOL = 1e-4   # NCSN++ card vs CPU, relative to max|out|, fp32
@@ -183,11 +202,12 @@ GS_EVAL_ITERS = 10      # pgd iterations restoring with the trained weights
 SYNTHETIC_TRAIN = 256   # images in the synthetic train split
 DIFF_DIM = 256          # the DiffUNet's geometry (DiffPIR ffhq_10m)
 DIFFUNET_PARITY_BATCH = 2
-PNP_DIFF_STEPS = 50     # pnp_diff max_iter, cut from the default 100 to
-                        # make room for the rf_zoo phase
+PNP_DIFF_STEPS = 25     # pnp_diff max_iter, cut from the default 100 to
+                        # 50 for the rf_zoo phase, to 25 for the parallel
+                        # one (about 1 s a step)
 PNP_DIFF_LAPLACE_STEPS = 10
 METRIC_N = 1000         # compute_metrics and FID-curve samples, cut from
-                        # the protocol's 5000 to keep the script near 10 min
+                        # the protocol's 5000 to keep the script near 15 min
 METRIC_STEPS = 10       # Euler steps of the compute_metrics run
 METRIC_BATCH = 50       # the sampling and Inception sub-batch
 INCEPTION_TOL = 1e-4    # pool3 card vs CPU, of max|pool3|; probs 1e-5
@@ -2248,6 +2268,479 @@ def rf_zoo_path(torch, dev, rect_state):
 
 
 # --------------------------------------------------------------- 7. timing
+# ------------------------------------------------------------ 6d. parallel
+PAR_FM_BATCH = TRAIN_BATCH   # the FM step at 128^2, batch_size_train
+PAR_GS_BATCH = GS_TRAIN_BATCH
+PAR_STEPS = 3
+PAR_SERVE_STEPS = 10         # pnp_flow steps of the sharding comparison
+PAR_METRIC_N = 100           # compute_metrics samples with the fan-out
+PAR_BACKEND_BATCH = 16       # grain + orbax CLI runs at 128^2
+PAR_BACKEND_IMAGES = 40      # the generated CelebA-layout folder
+PAR_PROFILE_STEPS = 3
+
+
+@contextlib.contextmanager
+def nccl_world_of_one(torch):
+    """The default process group over NCCL at world size 1, brought up by
+    ``parallel.mesh.init_distributed`` from torchrun's variables, which are
+    removed again afterwards (a later CLI run must not find them)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pnpflow_tpu_torch.parallel import mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    os.environ.update(env)
+    try:
+        check(mesh.init_distributed("cuda") and dist.get_backend() == "nccl"
+              and mesh.world_size() == 1, "no NCCL process group")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def _par_fm_steps(torch, sd, batches):
+    """PAR_STEPS precoupled flow-matching steps (Adam lr 1e-4 + EMA, fp32,
+    ``fused_norm`` True) of the 128^2 flagship from ``sd``: losses, device
+    seconds a step, peak, launches, and the parameters and EMA on the
+    host."""
+    from pnpflow_tpu_torch.models.unet import VelocityUNet
+    from pnpflow_tpu_torch.training import flow_matching as fm
+
+    m = VelocityUNet(**dict(FLAGSHIP, input_height=TRAIN_DIM),
+                     fused_norm=True)
+    m.load_state_dict(sd)
+    st = fm.new_state(m.cuda(), 1e-4)
+    step = fm.make_fm_train_step_precoupled(ema_decay=0.999)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    clock = fm._StepClock(torch.device("cuda"))
+    clock.mark()
+    losses = []
+    for x0, x1, t in batches:
+        losses.append(step(st, x0.cuda(), x1.cuda(), t=t.cuda()))
+        clock.mark()
+    out = {"losses": torch.stack(losses).cpu(), "launches": read_counts(),
+           "step_seconds": clock.seconds(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "params": {k: v.detach().cpu() for k, v in
+                      m.named_parameters()},
+           "ema": {k: v.cpu() for k, v in st.ema.items()}}
+    del st, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _par_gs_steps(torch, sd, batches, root):
+    """PAR_STEPS gradient-step denoiser steps (second order through the
+    GroupNorm kernel) of the 128^2 flagship at PAR_GS_BATCH from ``sd``."""
+    from pnpflow_tpu_torch.models.unet import VelocityUNet
+    from pnpflow_tpu_torch.training import denoiser as td
+    from pnpflow_tpu_torch.training.flow_matching import _StepClock
+    from pnpflow_tpu_torch.utils.config import CfgNode
+
+    m = VelocityUNet(**dict(FLAGSHIP, input_height=TRAIN_DIM),
+                     fused_norm=True)
+    tr = td.GradientStepTrainer(CfgNode({
+        "dataset": "synthetic", "model": "gradient_step",
+        "dim_image": TRAIN_DIM, "num_channels": 3, "lr": 1e-4,
+        "num_epoch": 1, "seed": 0, "output_root": root,
+        "batch_size_train": PAR_GS_BATCH, "device": "cuda"}), model=m)
+    st = tr.init_state()
+    m.load_state_dict(sd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    clock = _StepClock(torch.device("cuda"))
+    clock.mark()
+    losses = []
+    for y, sigma, u in batches:
+        losses.append(tr.train_step(st, y.cuda(), sigma, u=u.cuda())[0])
+        clock.mark()
+    out = {"losses": torch.stack(losses).cpu(), "launches": read_counts(),
+           "step_seconds": clock.seconds(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "params": {k: v.detach().cpu() for k, v in
+                      m.named_parameters()}}
+    del st, m, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bit_equal(torch, a, b, what):
+    check(torch.equal(a["losses"], b["losses"]),
+          f"{what}: losses {a['losses'].tolist()} / {b['losses'].tolist()}")
+    for key in ("params", "ema"):
+        for n, v in a.get(key, {}).items():
+            check(torch.equal(v, b[key][n]), f"{what}: {key} {n} differ")
+
+
+def _summary(r, batch):
+    step_s = statistics.median(r["step_seconds"])
+    return {"losses": r["losses"].tolist(), "step_seconds": r["step_seconds"],
+            "seconds_per_step": step_s, "images_per_s": batch / step_s,
+            "max_memory_allocated": r["max_memory_allocated"],
+            "launches": r["launches"]}
+
+
+def parallel_trainers(torch):
+    """Both trainers' steps at full width (the 128^2 flagship, fused_norm
+    True) without a process group and under ``init_distributed`` at world
+    size 1 over NCCL, from the same weights on the same data: equal bit for
+    bit (the mean over one rank is the identity)."""
+    import numpy as np
+
+    from pnpflow_tpu_torch.ops.ot import host_ot_pair
+
+    sd = {k: v.cpu() for k, v in randomized_unet(
+        torch, "cpu", True, seed=31, input_height=TRAIN_DIM)
+        .state_dict().items()}
+    rng = np.random.default_rng(5)
+    g = torch.Generator().manual_seed(5)
+    fm_batches = []
+    for _ in range(PAR_STEPS):
+        x1 = np.tanh(rng.standard_normal(
+            (PAR_FM_BATCH, TRAIN_DIM, TRAIN_DIM, 3))).astype(np.float32)
+        x0 = rng.standard_normal(x1.shape, dtype=np.float32)
+        i0, i1 = host_ot_pair(x0, x1, rng)
+        fm_batches.append((torch.from_numpy(x0[i0]),
+                           torch.from_numpy(x1[i1]),
+                           torch.rand(PAR_FM_BATCH, generator=g)))
+    gs_batches = [(torch.from_numpy(np.tanh(rng.standard_normal(
+        (PAR_GS_BATCH, TRAIN_DIM, TRAIN_DIM, 3))).astype(np.float32)),
+        float(rng.uniform(0, 0.25)),
+        torch.randn((PAR_GS_BATCH, TRAIN_DIM, TRAIN_DIM, 3), generator=g))
+        for _ in range(PAR_STEPS)]
+    gn = gn_sites_at(TRAIN_DIM)
+    out = {}
+    # cuDNN's default backward algorithms may add with atomics, in an order
+    # that differs between two runs of the same step
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as root:
+        for name, run, batches, batch in (
+                ("fm", _par_fm_steps, fm_batches, PAR_FM_BATCH),
+                ("gs", _par_gs_steps, gs_batches, PAR_GS_BATCH)):
+            args = (torch, sd, batches) + ((root,) if name == "gs" else ())
+            plain = run(*args)
+            with nccl_world_of_one(torch):
+                dp = run(*args)
+            _bit_equal(torch, plain, dp, f"parallel/{name}")
+            for r in (plain, dp):
+                check(r["launches"] == only(groupnorm_swish=gn * PAR_STEPS),
+                      f"parallel/{name}: launches {r['launches']}")
+            out[f"{name}_plain"] = dict(_summary(plain, batch), batch=batch)
+            out[f"{name}_nccl_world1"] = dict(_summary(dp, batch),
+                                              batch=batch)
+            del plain, dp
+    torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def parallel_serve(torch):
+    """``Restorer(shard=True, n_devices=1)`` against ``shard=False`` on one
+    request (pnp_flow, the 64^2 flagship, "conv", 4 images), bit for bit;
+    then two shards on the one card (``devices=["cuda:0"] * 2``: each
+    shard's thread and its slice of the batch's noise) within 1e-4 of
+    max (cuDNN may pick other algorithms at 2 images than at 4).  Each
+    restore is timed on its second call."""
+    import numpy as np
+
+    from pnpflow_tpu_torch.serve import Restorer
+
+    kw = dict(method="pnp_flow", problem="gaussian_deblurring_FFT",
+              dim_image=64, batch_size=4,
+              overrides={"steps_pnp": PAR_SERVE_STEPS})
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # the random-init warning
+            plain = Restorer(**kw, output_root=root)
+            one = Restorer(**kw, output_root=root, shard=True, n_devices=1)
+            two = Restorer(**kw, output_root=root, shard=True,
+                           devices=["cuda:0", "cuda:0"])
+        clean = np.tanh(np.random.default_rng(3).normal(
+            size=(4, 64, 64, 3))).astype(np.float32)
+        y = plain.degrade(clean, seed=4).cpu()
+        want = plain.restore(y, seed=5)
+        t0 = time.perf_counter()
+        plain.restore(y, seed=5)
+        out["unsharded_seconds"] = time.perf_counter() - t0
+        for name, r in (("n_devices_1", one), ("two_shards_one_card", two)):
+            r.restore(y, seed=6)        # first calls plan the new shapes
+            reset_counts()
+            t0 = time.perf_counter()
+            got = r.restore(y, seed=5)
+            seconds = time.perf_counter() - t0
+            launches = read_counts()
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            # a shard launches each of its forwards' kernels
+            n = CONV_SITES * PAR_SERVE_STEPS * len(r.devices)
+            check(launches == only(conv3x3_gn=n),
+                  f"parallel/serve {name}: launches {launches}, {n}")
+            check(np.isfinite(got).all() and (
+                err == 0.0 if name == "n_devices_1" else err <= 1e-4),
+                f"parallel/serve {name}: {err} of max from unsharded")
+            out[name] = {"rel_err": err, "seconds": seconds,
+                         "launches": launches, "steps": PAR_SERVE_STEPS}
+    return out
+
+
+def parallel_metrics(torch):
+    """``ComputeMetric`` with the fan-out: the metric sampler and the
+    Inception chunker over two copies on the one card (two threads), the
+    64^2 flagship ("conv"), n PAR_METRIC_N by Euler in 5 steps; its
+    samples against the one-device sampler's, and a finite line."""
+    from pnpflow_tpu_torch.metrics.generative import ComputeMetric
+    from pnpflow_tpu_torch.models.registry import build_model_bundle
+    from pnpflow_tpu_torch.utils.config import load_full_config
+    from pnpflow_tpu_torch.data import DataLoaders
+
+    with tempfile.TemporaryDirectory() as out:
+        link_metric_weights(out, inception=True, lpips=False)
+        args = load_full_config(["dataset", "synthetic", "model", "ot",
+                                 "dim_image", "64", "output_root", out,
+                                 "seed", "0", "eval_split", "test"])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # the random-init warning
+            bundle = build_model_bundle(args, device="cuda")
+        with torch.no_grad():                   # a field that moves samples
+            for p in bundle.model.parameters():
+                p.add_(0.01 * torch.randn_like(p))
+        loaders = DataLoaders("synthetic", 50, 50, dim_image=64,
+                              num_channels=3, test_n=PAR_METRIC_N).load_data()
+        fan = ComputeMetric(loaders, bundle, args,
+                            devices=["cuda:0", "cuda:0"])
+        single = ComputeMetric(loaders, bundle, args)
+        x0 = torch.randn((METRIC_BATCH, 64, 64, 3), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+        with torch.inference_mode():
+            a = fan._sample_batch(x0, 5, "euler")
+            b = single._sample_batch(x0, 5, "euler")
+        err = float((a - b).abs().max() / b.abs().max())
+        check(err <= 1e-4, f"parallel/metrics: samples {err} of max apart")
+        reset_counts()
+        res = fan.compute_metrics(PAR_METRIC_N, steps=5, sampler="euler",
+                                  cache=False)
+        launches = read_counts()
+    check(all(math.isfinite(res[k]) for k in ("fid", "kid", "vendi", "sw")),
+          f"parallel/metrics: {res}")
+    check(res["features"].startswith("inception_2048")
+          and launches["conv3x3_gn"] > 0, f"parallel/metrics: {launches}")
+    return {"sample_rel_err": err, "n": PAR_METRIC_N, "fid": res["fid"],
+            "wall_s": res["wall_s"], "seconds": res["seconds"],
+            "launches": launches, "devices": 2}
+
+
+def _celeba_folder(root, n):
+    """A CelebA-layout tree under root/data (178x178 JPEGs, the partition
+    csv: all but 8 in train) and root/config linked to the checkout's."""
+    import numpy as np
+    from PIL import Image
+
+    d = os.path.join(root, "data", "celeba", "img_align_celeba")
+    os.makedirs(d)
+    rng = np.random.default_rng(7)
+    rows = ["image_id,partition"]
+    for i in range(n):
+        name = f"{i:06d}.jpg"
+        Image.fromarray(rng.integers(0, 255, size=(178, 178, 3),
+                                     dtype=np.uint8)).save(
+            os.path.join(d, name))
+        rows.append(f"{name},{0 if i < n - 8 else 2}")
+    with open(os.path.join(root, "data", "celeba",
+                           "list_eval_partition.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    os.symlink(os.path.join(HERE, "config"), os.path.join(root, "config"))
+
+
+def parallel_backends(torch):
+    """``train True`` through the CLI at 128^2 (CelebA's geometry, the
+    flagship, fused_norm True) on a generated CelebA-layout folder read by
+    ``data_backend grain`` (4 worker processes), with ``ckpt_backend
+    orbax``: 2 epochs of one step, then a resume to 4 epochs; the step
+    directories, the retention of the newest 3 and the resumed step."""
+    import contextlib as cl
+    import io
+
+    from pnpflow_tpu_torch.main import main
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        _celeba_folder(root, PAR_BACKEND_IMAGES)
+        d = os.path.join(root, "out", "model", "celeba", "ot", "orbax")
+        for epochs in (2, 4):
+            opts = ["dataset", "celeba", "dim_image", str(TRAIN_DIM),
+                    "root", root, "train", "True",
+                    "num_epoch", str(epochs), "max_iters_per_epoch", "1",
+                    "batch_size_train", str(PAR_BACKEND_BATCH),
+                    "data_backend", "grain", "ckpt_backend", "orbax",
+                    "eval", "False", "output_root",
+                    os.path.join(root, "out")]
+            reset_counts()
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with cl.redirect_stdout(log):
+                args = main(["--opts"] + opts)
+            seconds = time.perf_counter() - t0
+            steps = sorted(int(s) for s in os.listdir(d))
+            out[f"epochs_{epochs}"] = {
+                "seconds": seconds, "losses": args.train_stats["losses"],
+                "orbax_steps": steps, "launches": read_counts()}
+            check(all(map(math.isfinite, args.train_stats["losses"])),
+                  f"parallel/backends: losses {args.train_stats['losses']}")
+        check(out["epochs_2"]["orbax_steps"] == [1, 2]
+              and out["epochs_4"]["orbax_steps"] == [2, 3, 4]
+              and "Resumed from step 2 (epoch 2)" in log.getvalue()
+              and len(out["epochs_4"]["losses"]) == 2,
+              f"parallel/backends: {out} {log.getvalue()[-400:]}")
+    gn = gn_sites_at(TRAIN_DIM)
+    check(out["epochs_4"]["launches"] == only(groupnorm_swish=gn * 2),
+          f"parallel/backends: launches {out['epochs_4']['launches']}")
+    return out
+
+
+def parallel_norm_variants(torch, dev):
+    """One forward of the random 64^2 flagship per new ``fused_norm``
+    variant ("dot", "tview", "bf16stats", plain PyTorch) at the main-path
+    batch, fp32 and bf16, against ``False`` on the same weights (fp32:
+    1e-4 of max; bf16: 3e-2, the bf16 bound of the U-Net modes), and its
+    CUDA-event time (median of FORWARD_REPS)."""
+    x = torch.randn((MAIN_BATCH, 64, 64, 3), device=dev,
+                    generator=torch.Generator(dev).manual_seed(8))
+    t = torch.rand((MAIN_BATCH,), device=dev,
+                   generator=torch.Generator(dev).manual_seed(9))
+    base = randomized_unet(torch, dev, False, seed=12)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        base.dtype = dtype
+        with torch.no_grad():
+            want = base(x, t)
+            plain_ms = cuda_median_ms(torch, lambda: base(x, t))
+        row = {"False_ms": plain_ms}
+        for mode in ("dot", "tview", "bf16stats"):
+            m = randomized_unet(torch, dev, mode, seed=12)
+            m.dtype = dtype
+            with torch.no_grad():
+                got = m(x, t)
+                row[f"{mode}_ms"] = cuda_median_ms(torch, lambda: m(x, t))
+            err = float((got - want).abs().max() / want.abs().max())
+            row[f"{mode}_rel_err"] = err
+            check(math.isfinite(err) and err <= (
+                1e-4 if dtype == torch.float32 else 3e-2),
+                f"parallel/norm_variants {mode} {dtype}: {err}")
+            del m
+        out[str(dtype).split(".")[1]] = row
+    return {"batch": MAIN_BATCH, "image": 64, **out}
+
+
+def parallel_profile(torch):
+    """A ``jax_profile`` restoration through the CLI (pnp_flow, the 64^2
+    flagship, "conv", PAR_PROFILE_STEPS steps) and the report's top ops
+    (``utils/profile_report.py``) from the trace it wrote."""
+    from pnpflow_tpu_torch.main import main
+    from pnpflow_tpu_torch.utils import profile_report
+
+    with tempfile.TemporaryDirectory() as out:
+        prof = os.path.join(out, "prof")
+        reset_counts()
+        main(["--opts", "dataset", "synthetic", "model", "ot", "eval",
+              "True", "method", "pnp_flow", "problem",
+              "gaussian_deblurring_FFT", "batch_size_ip", "4", "max_batch",
+              "1", "num_samples", "5", "steps_pnp", str(PAR_PROFILE_STEPS),
+              "save_results", "False", "output_root", out,
+              "jax_profile", prof])
+        launches = read_counts()
+        rows = profile_report.report(prof, 25)
+    check(launches == only(conv3x3_gn=CONV_SITES * PAR_PROFILE_STEPS),
+          f"parallel/profile: launches {launches}")
+    check(any("conv3x3_gn_kernel" in r["op"] for r in rows),
+          f"parallel/profile: no conv3x3_gn kernel among {rows}")
+    return {"steps": PAR_PROFILE_STEPS, "top_ops": rows[:10],
+            "launches": launches}
+
+
+def parallel_demos(torch):
+    """The three demos through their entry points at shrunk knobs, on the
+    card: the 2-D toy (200 steps), demo.py (1 epoch of 2 steps, 10 PnP
+    steps) and the Dirichlet demos (10 PnP steps x 2 draws, 5 training
+    iterations, 1 LBFGS iteration)."""
+    from pnpflow_tpu_torch.demos import demo, dirichlet, toy_example
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        env = {"DIRI_STEPS": "10", "DIRI_MC": "2", "DIRI_TRAIN_ITERS": "5",
+               "DIRI_DFLOW_ITERS": "1", "DIRI_OUT": os.path.join(d, "diri")}
+        os.environ.update(env)
+        try:
+            for name, run in (
+                    ("toy", lambda: toy_example.main(
+                        ["--steps", "200", "--out", d])),
+                    ("demo", lambda: demo.main(
+                        ["--epochs", "1", "--steps-per-epoch", "2",
+                         "--pnp-steps", "10", "--out", d])),
+                    ("dirichlet", lambda: dirichlet.main([]))):
+                reset_counts()
+                t0 = time.perf_counter()
+                res = run()
+                torch.cuda.synchronize()
+                out[name] = {"seconds": time.perf_counter() - t0,
+                             "launches": read_counts()}
+                if name == "demo":
+                    check(bool(torch.isfinite(res).all()),
+                          "parallel/demos: demo.py restored non-finite")
+                if name == "dirichlet":
+                    check(all(bool(torch.isfinite(a).all()
+                                   & torch.isfinite(b).all())
+                              for a, b in res.values()),
+                          "parallel/demos: dirichlet non-finite")
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+    for name in ("demo", "dirichlet"):
+        check(out[name]["launches"]["groupnorm_swish"] > 0,
+              f"parallel/demos: {name} launched {out[name]['launches']}")
+    return out
+
+
+def _par_runs(name, r):
+    """The runs of a parallel result that carry ``launches``, by name."""
+    if "launches" in r:
+        return {name: r}
+    return {f"{name}_{k}": v for k, v in r.items()
+            if isinstance(v, dict) and "launches" in v}
+
+
+def parallel_path(torch, dev):
+    """The ``parallel`` phase: every run read right after it."""
+    if torch.cuda.device_count() > 1:
+        print(f"{torch.cuda.device_count()} cards visible; the parallel "
+              "phase still runs at world size 1", flush=True)
+    runs = {}
+    for name, fn in (("trainers", lambda: parallel_trainers(torch)),
+                     ("serve", lambda: parallel_serve(torch)),
+                     ("metrics", lambda: parallel_metrics(torch)),
+                     ("backends", lambda: parallel_backends(torch)),
+                     ("norm_variants",
+                      lambda: parallel_norm_variants(torch, dev)),
+                     ("demos", lambda: parallel_demos(torch))):
+        torch.cuda.empty_cache()
+        with phase(f"parallel/{name}"):
+            r = fn()
+        emit({"parallel": name, **r})
+        runs[name] = r
+    return runs
+
+
 def cuda_median_ms(torch, fn, reps=FORWARD_REPS, warmup=1):
     """The median of ``reps`` CUDA-event times of single calls."""
     for _ in range(warmup):
@@ -2902,6 +3395,35 @@ def profiles(torch, dev, gn_sites, firs, rect_state, train_batch):
     return fir["fir_adjoint"]["float32"]
 
 
+def left_running():
+    """The processes this script started that still run, as
+    ``pid: command`` (zombies aside), after the grain workers' forkserver
+    and resource tracker are stopped as they are at exit."""
+    from pnpflow_tpu_torch.data.grain_loader import stop_worker_servers
+
+    stop_worker_servers()
+    parent, cmd = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd[int(d)] = f.read().replace(b"\0", b" ").decode()[:200]
+        except OSError:
+            continue
+        if state != "Z":
+            parent[int(d)] = int(ppid)
+    ours = {os.getpid()}
+    grew = True
+    while grew:
+        kids = {p for p, pp in parent.items() if pp in ours} - ours
+        grew = bool(kids)
+        ours |= kids
+    return {p: cmd.get(p, "") for p in sorted(ours - {os.getpid()})}
+
+
 def main():
     import torch
 
@@ -2964,9 +3486,14 @@ def main():
         with phase("main_path/serve"):
             runs["serve"] = serve_path(torch)
         emit({"main_path": "serve", **runs["serve"]})
+        with phase("parallel"):
+            par = parallel_path(torch, dev)
     with phase("rf_zoo"):
         runs.update(rf_zoo_path(torch, dev, rect_state))
     launches["groupnorm_swish"] += train["launches"]["groupnorm_swish"]
+    # the parallel phase's runs: each launched its kernels (checked there)
+    runs.update({f"parallel_{k}": v for name, r in par.items()
+                 for k, v in _par_runs(name, r).items()})
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
     kernels = kernel_rows(torch, dev, sites, launches, err, runs)
@@ -2982,6 +3509,18 @@ def main():
     fir_row = next(k for k in kernels if k["name"] == "upfirdn2d")
     fir_row["adjoint_device_ms_per_vjp"] = adjoint["ms"]
     fir_row["adjoint_bound_ms"] = adjoint["bound_ms"]
+    # after the profiles: a second profiler session in the process loses
+    # a few kernel records of the one after it
+    with phase("parallel/profile"):
+        prof = parallel_profile(torch)
+    emit({"parallel": "profile", **prof})
+    next(k for k in kernels if k["name"] == "conv3x3_gn")[
+        "launches_by_run"]["parallel_profile"] = \
+        prof["launches"]["conv3x3_gn"]
+    left = left_running()
+    for pid in left:
+        os.kill(pid, signal.SIGKILL)
+    check(not left, f"processes left running (killed): {left}")
     emit({"kernels": kernels})
     emit({"seconds": time.perf_counter() - t_all})
     print(card, flush=True)

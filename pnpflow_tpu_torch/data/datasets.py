@@ -149,12 +149,31 @@ def synthetic_images(n, dim, channels, seed=0):
     return imgs
 
 
+def celeba_transform(img, dim: int):
+    return _to_array(_resize(_center_crop(img, 178), (dim, dim))) * 2.0 - 1.0
+
+
+def resize_transform(img, size):
+    """``_resize`` to ``size`` (int: the short edge), then [-1, 1]."""
+    return _to_array(_resize(img, size)) * 2.0 - 1.0
+
+
 class DataLoaders:
-    """Reference-compatible factory: ``load_data()`` -> {train, val, test}."""
+    """Reference-compatible factory: ``load_data()`` -> {train, val, test}.
+
+    ``backend`` "thread" (the default) reads the image-file datasets in
+    this process (the trainer's prefetch thread overlaps it); "grain" reads
+    them in ``num_workers`` worker processes (``data/grain_loader.py``).
+    The in-memory datasets (synthetic, mnist) take no backend.  The
+    transforms are module-level functions, so a worker process can unpickle
+    them."""
 
     def __init__(self, dataset_name, batch_size_train, batch_size_test,
                  root="./data", dim_image=None, num_channels=None,
-                 test_n=None):
+                 test_n=None, backend="thread", num_workers=4):
+        if backend not in ("thread", "grain"):
+            raise ValueError(f"unknown data_backend {backend!r}: thread or "
+                             "grain")
         self.dataset_name = dataset_name
         self.batch_size_train = batch_size_train
         self.batch_size_test = batch_size_test
@@ -163,16 +182,25 @@ class DataLoaders:
         self.num_channels = num_channels
         # synthetic only: size of the generated test split
         self.test_n = test_n
+        self.backend = backend
+        self.num_workers = num_workers
+
+    def _file_loader(self, paths, bs, transform, shuffle=False,
+                     drop_last=False):
+        if self.backend == "grain":
+            from pnpflow_tpu_torch.data.grain_loader import GrainFileLoader
+
+            return GrainFileLoader(paths, bs, transform, shuffle=shuffle,
+                                   drop_last=drop_last,
+                                   num_workers=self.num_workers)
+        return _FileDataset(paths, bs, transform, shuffle=shuffle,
+                            drop_last=drop_last)
 
     def load_data(self):
         name = self.dataset_name
         if name == "celeba":
-            dim = self.dim_image or 128
-
-            def transform(img):
-                img = _center_crop(img, 178)
-                img = _resize(img, (dim, dim))
-                return _to_array(img) * 2.0 - 1.0
+            transform = functools.partial(celeba_transform,
+                                          dim=self.dim_image or 128)
 
             img_dir = os.path.join(self.root, "celeba/img_align_celeba/")
             csv_path = os.path.join(self.root, "celeba/list_eval_partition.csv")
@@ -185,7 +213,8 @@ class DataLoaders:
             def split(partition, bs, shuffle):
                 names = df[df["partition"] == partition]["image"].values
                 paths = [os.path.join(img_dir, n) for n in names]
-                return _FileDataset(paths, bs, transform, shuffle=shuffle)
+                return self._file_loader(paths, bs, transform,
+                                         shuffle=shuffle)
 
             return {
                 "train": split(0, self.batch_size_train, True),
@@ -194,9 +223,7 @@ class DataLoaders:
             }
 
         if name == "celebahq":
-            def transform(img):
-                img = _resize(img, 256)
-                return _to_array(img) * 2.0 - 1.0
+            transform = functools.partial(resize_transform, size=256)
 
             test_dir = os.path.join(self.root, "celebahq/test/")
             paths = [
@@ -205,19 +232,19 @@ class DataLoaders:
             return {
                 "train": None,
                 "val": None,
-                "test": _FileDataset(paths, self.batch_size_test, transform),
+                "test": self._file_loader(paths, self.batch_size_test,
+                                          transform),
             }
 
         if name == "afhq_cat":
-            def transform(img):
-                img = _resize(img, (256, 256))
-                return _to_array(img) * 2.0 - 1.0
+            transform = functools.partial(resize_transform, size=(256, 256))
 
             def split(sub, bs, shuffle, drop_last=False):
                 d = os.path.join(self.root, f"afhq_cat/{sub}/cat/")
                 paths = [os.path.join(d, f) for f in sorted(os.listdir(d))]
-                return _FileDataset(paths, bs, transform, shuffle=shuffle,
-                                    drop_last=drop_last)
+                return self._file_loader(paths, bs, transform,
+                                         shuffle=shuffle,
+                                         drop_last=drop_last)
 
             return {
                 "train": split("train", self.batch_size_train, True, True),

@@ -8,11 +8,15 @@ producer is raised in the consumer.
 
 With ``device`` a CUDA device, the producer also moves each batch's images
 there: copied into pinned memory and sent with ``non_blocking``, so the
-copy overlaps the device's work instead of waiting for it.
+copy overlaps the device's work instead of waiting for it.  The producer
+makes that card current first (a bare ``cuda`` is the consumer's current
+card): a new thread starts on card 0, whatever card the consumer's rank
+trains on.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 
@@ -43,16 +47,21 @@ class PrefetchIterator:
     def __len__(self):
         return len(self._iterable)
 
-    def _ready(self, item):
-        if self._device is None:
+    @staticmethod
+    def _ready(item, dev):
+        if dev is None:
             return item
         x, *rest = item
-        return (to_device(x, self._device), *rest)
+        return (to_device(x, dev), *rest)
 
     def __iter__(self):
         q: queue.Queue = queue.Queue(maxsize=self._depth)
         stop = threading.Event()
         err: list = []
+        dev = None if self._device is None else torch.device(self._device)
+        on_card = dev is not None and dev.type == "cuda"
+        if on_card and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
 
         def _put(item) -> bool:
             """put() that gives up when the consumer has gone away."""
@@ -66,9 +75,11 @@ class PrefetchIterator:
 
         def worker():
             try:
-                for item in self._iterable:
-                    if not _put(self._ready(item)):
-                        return
+                with (torch.cuda.device(dev) if on_card
+                      else contextlib.nullcontext()):
+                    for item in self._iterable:
+                        if not _put(self._ready(item, dev)):
+                            return
             except BaseException as exc:  # raised again in the consumer
                 err.append(exc)
             finally:

@@ -24,7 +24,15 @@ the Inception features of ``{output_root}/model/inception_fid.npz`` or,
 without that file, on 32x32 pixels (``metrics/generative.py``); with
 ``train True`` the trainer also writes the FID-5k curve.
 
-Not ported yet: the ``grain`` data backend; it raises.
+``--opts data_backend grain`` reads the image-file datasets through
+worker processes (``data/grain_loader.py``); ``ckpt_backend orbax`` keeps the
+trainer's resume state in versioned step directories
+(``training/checkpoint.py``); ``jax_profile <dir>`` writes a
+``torch.profiler`` trace of the restoration run into ``<dir>``
+(``solvers/base.py``).  Under ``torchrun --nproc_per_node N -m
+pnpflow_tpu_torch --opts train True ...`` the trainers run data-parallel,
+one card per rank (``parallel/mesh.py``); rank 0 alone writes, and alone
+runs what follows training (``eval True``).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from pnpflow_tpu_torch.device import resolve_device, set_fp32_parity_mode
 from pnpflow_tpu_torch.metrics.generative import ComputeMetric
 from pnpflow_tpu_torch.models.registry import build_model_bundle
 from pnpflow_tpu_torch.ops.degradations import make_degradation
+from pnpflow_tpu_torch.parallel import mesh
 from pnpflow_tpu_torch.solvers.factory import build_solver
 from pnpflow_tpu_torch.training.denoiser import GradientStepTrainer
 from pnpflow_tpu_torch.training.flow_matching import FlowMatchingTrainer
@@ -65,7 +74,7 @@ def main(argv=None):
 
     if args.train:
         train(args, device)
-    if not args.eval:
+    if not args.eval or not mesh.is_writer():
         return args
 
     bf16 = bool(getattr(args, "bf16", False))
@@ -112,22 +121,24 @@ def main(argv=None):
 
 def train(args, device):
     """Train the velocity field of ``model ot|indep``, or the gradient-step
-    denoiser of ``model gradient_step``, in float32 on ``device``;
+    denoiser of ``model gradient_step``, in float32 on ``device`` (one card
+    per rank where ``torchrun`` launched the process);
     ``args.train_stats`` gets what the trainer measured."""
     args.batch_size = args.batch_size_train
     if args.model not in ("ot", "indep", "gradient_step"):
         raise ValueError("Model not implemented yet: choose 'ot' or "
                          "'gradient_step'")
-    if getattr(args, "data_backend", "thread") != "thread":
-        raise NotImplementedError(
-            f"data_backend {args.data_backend!r} is not ported (ROADMAP "
-            "queue 1, item 7)")
+    if mesh.init_distributed(device):
+        print("data parallel: rank {} of {}".format(mesh.rank(),
+                                                    mesh.world_size()))
+    device = mesh.rank_device(device)
     print("fp32 parity mode:", set_fp32_parity_mode())
     print("Training...")
     data_loaders = DataLoaders(
         args.dataset, args.batch_size_train, args.batch_size_train,
         root=os.path.join(args.root, "data"), dim_image=args.dim_image,
         num_channels=args.num_channels,
+        backend=getattr(args, "data_backend", "thread"),
     ).load_data()
     trainer = (GradientStepTrainer if args.model == "gradient_step"
                else FlowMatchingTrainer)(args, device=device)

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from pnpflow_tpu_torch.ops.ode import odeint
+from pnpflow_tpu_torch.parallel import mesh
 from pnpflow_tpu_torch.solvers.base import peak_memory_info
 
 VENDI_MAX = 2048
@@ -248,11 +249,18 @@ class ComputeMetric:
     ``steps`` fixed steps).  Without ``inception_fid.npz`` the features are
     the 32x32 pixels, with a warning, as in JAX.
 
-    One card: the sampling and feature batch is min(50, n) (JAX rounds it
-    to a multiple of its device count).  Chunk i's x0 is the i-th draw of
-    a ``torch.Generator`` seeded ``args.seed`` on the model's device, drawn
-    whether or not the chunk is cached, so the sequence is the same for any
-    n with the same batch.  ``x0_fn(i, shape)`` replaces those draws and
+    The sampling and feature batch is min(50, n).  Chunk i's x0 is the i-th
+    draw of a ``torch.Generator`` seeded ``args.seed`` on the model's
+    device, drawn whether or not the chunk is cached, so the sequence is
+    the same for any n with the same batch.  ``devices`` (default: every
+    visible card, the model's first, or its card alone under a process
+    group; on the CPU the CPU) fans the work out
+    as JAX shards it over its mesh: each chunk's x0 is split over a copy of
+    the model on each device and the Inception network's sub-batches over a
+    copy of it on each (``parallel/mesh.py``), so the samples and features
+    are those of one device.  dopri5 samples on the model's device alone:
+    its step-size controller takes the error over the whole chunk, so
+    shards with steps of their own would be another sampler.  ``x0_fn(i, shape)`` replaces those draws and
     ``sw_proj`` the SW projections: the seams through which a test gives
     both packages the same inputs.  Test features and each generated
     chunk's features are cached under ``results/{dataset}/{model}/
@@ -260,20 +268,32 @@ class ComputeMetric:
     (a)-(c) on the keys.
     """
 
-    def __init__(self, data_loaders, bundle, args, x0_fn=None, sw_proj=None):
+    def __init__(self, data_loaders, bundle, args, x0_fn=None, sw_proj=None,
+                 devices=None):
         self.loaders = data_loaders
         self.bundle = bundle
         self.args = args
-        self.device = bundle.device
+        self.device = dev = bundle.device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if devices is None and mesh.is_distributed():
+            # rank 0's FID curve: the other cards belong to other ranks
+            devices = [dev]
+        elif devices is None:
+            devices = mesh.devices(None, dev)
+            devices = [dev] + [d for d in devices if d != dev]
+        self.devices = [torch.device(d) for d in devices]
         self.x0_fn = x0_fn
         self.sw_proj = sw_proj
+        self._replicas = None
 
     def _feature_fn(self):
         """(feature_fn, outputs_fn or None, feature-space name)."""
         from pnpflow_tpu_torch.models.inception import (
             get_inception_fns, inception_path)
 
-        fns = get_inception_fns(self.args, device=self.device)
+        fns = get_inception_fns(self.args, device=self.device,
+                                devices=self.devices)
         if fns is not None:
             # the weights' provenance rides in the token, so a metrics.txt
             # line names the weights it was scored with
@@ -288,15 +308,29 @@ class ComputeMetric:
         return pixel_features, None, "pixels_32"
 
     def _sample_batch(self, x0, steps: int, sampler: str):
-        """One batch of samples of the flow ODE from x0, t = 0 to 1."""
-        model = self.bundle
+        """One batch of samples of the flow ODE from x0, t = 0 to 1, its
+        rows split over the devices (dopri5: on the model's device)."""
+        def sample(model, x):
+            def f(x, t):
+                return model(x, torch.full((x.shape[0],), t,
+                                           dtype=torch.float32,
+                                           device=x.device))
 
-        def f(x, t):
-            return model.forward(x, torch.full((x.shape[0],), t,
-                                               dtype=torch.float32,
-                                               device=x.device))
+            return odeint(f, x, 0.0, 1.0, method=sampler, steps=steps)
 
-        return odeint(f, x0, 0.0, 1.0, method=sampler, steps=steps)
+        if sampler == "dopri5" or len(self.devices) == 1:
+            return sample(self.bundle.forward, x0)
+        if self._replicas is None:
+            self._replicas = mesh.replicate(self.bundle.model, self.devices)
+
+        def run(k, part):
+            with torch.inference_mode(), mesh.on(self.devices[k]):
+                return sample(self._replicas[k], part)
+
+        parts = [p.to(d) for p, d in zip(
+            torch.tensor_split(x0, len(self.devices)), self.devices)
+            if p.shape[0]]
+        return mesh.gather(mesh.fan_out(run, parts), x0.device)
 
     def _test_features(self, feature_fn, feat_name, n, batch):
         args = self.args

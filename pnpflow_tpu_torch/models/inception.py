@@ -22,8 +22,11 @@ The weights cannot be downloaded here: they load from
 ``{output_root}/model/inception_fid.npz`` in the JAX package's layout
 (HWIO kernels, written by ``utils/inception_convert.py``), and
 :func:`get_inception_fns` returns None without the file, so the caller can
-fall back.  There is one card, so the images run in sub-batches of 50 on
-it, the last one ragged; no mesh.
+fall back.  The images run in sub-batches of 50, the last one ragged; with
+several devices (``devices``) each sub-batch, rounded down to a multiple of
+their count, is split over them and their copies of the network run at the
+same time (``parallel/mesh.py``), as JAX shards each sub-batch over its
+mesh.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pnpflow_tpu_torch.device import resolve_device
+from pnpflow_tpu_torch.parallel import mesh
 
 # (path, mtime, device) -> (feature_fn, outputs_fn), the last one asked for
 # only: a process that scores under several output roots keeps one network
@@ -232,13 +236,26 @@ def inception_path(args) -> str:
     return os.path.join(args.output_root, "model", "inception_fid.npz")
 
 
-def chunked(fn, x01, batch: int):
-    """``fn`` over sub-batches of ``batch`` images (the last one ragged),
-    the results concatenated; one tensor or a tuple of them."""
-    outs = [fn(x01[i:i + batch]) for i in range(0, x01.shape[0], batch)]
+def chunked(fns, x01, batch: int, devs):
+    """``fns[k]`` (on ``devs[k]``) over sub-batches of ``x01``: ``batch``
+    images rounded down to a multiple of the device count (the last one
+    ragged), each split over the devices and run at the same time; the
+    results concatenated on x01's device, one tensor or a tuple of them."""
+    n = len(devs)
+    sub = max(n, (batch // n) * n)
+
+    def run(k, part):
+        with torch.inference_mode(), mesh.on(devs[k]):
+            return fns[k](part.to(devs[k]))
+
+    outs = []
+    for i in range(0, x01.shape[0], sub):
+        parts = [p for p in torch.tensor_split(x01[i:i + sub], n)
+                 if p.shape[0]]
+        outs += mesh.fan_out(run, parts)
     if isinstance(outs[0], tuple):
-        return tuple(torch.cat(o) for o in zip(*outs))
-    return torch.cat(outs)
+        return tuple(mesh.gather(o, x01.device) for o in zip(*outs))
+    return mesh.gather(outs, x01.device)
 
 
 def _on(dev, x01):
@@ -250,35 +267,40 @@ def _on(dev, x01):
     return x01
 
 
-def get_inception_fns(args, batch: int = 50, device=None):
+def get_inception_fns(args, batch: int = 50, device=None, devices=None):
     """``(feature_fn, outputs_fn)`` on ``device`` (``cuda`` unless asked
     otherwise), or None when the weight file is missing.  ``feature_fn``
     maps (N, H, W, C) images in [0, 1] on that device to (N, 2048) pool3
     features; ``outputs_fn`` maps them to (features, (N, 1008) softmax
     probabilities) in one forward, and is None when the npz has no fc head.
-    Both raise on images on another device.  Cached on (path, mtime,
-    device), the last key asked for: a regenerated npz is read again."""
+    Both raise on images on another device.  ``devices`` (a list whose
+    first entry is that device) fans each sub-batch out over a copy of the
+    network on each.  Cached on (path, mtime, devices), the last key asked
+    for: a regenerated npz is read again."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         # the device a tensor made on "cuda" reports
         dev = torch.device("cuda", torch.cuda.current_device())
+    devs = [dev] if devices is None else [torch.device(d) for d in devices]
+    if devs[0] != dev:
+        raise ValueError(f"devices {devs} do not start with {dev}")
     path = inception_path(args)
     if not os.path.exists(path):
         return None
-    key = (path, os.path.getmtime(path), str(dev))
+    key = (path, os.path.getmtime(path), tuple(map(str, devs)))
     if key not in _CACHE:
         _CACHE.clear()
-        net = InceptionFID(load_inception_params(path)).to(dev).eval()
+        nets = mesh.replicate(
+            InceptionFID(load_inception_params(path)).to(dev).eval(), devs)
 
-        @torch.inference_mode()
         def feature_fn(x01):
-            return chunked(net, _on(dev, x01), batch)
+            return chunked(nets, _on(dev, x01), batch, devs)
 
         outputs_fn = None
-        if net.fc is not None:
-            @torch.inference_mode()
+        if nets[0].fc is not None:
             def outputs_fn(x01):  # noqa: F811
-                return chunked(net.outputs, _on(dev, x01), batch)
+                return chunked([n.outputs for n in nets], _on(dev, x01),
+                               batch, devs)
 
         _CACHE[key] = (feature_fn, outputs_fn)
     return _CACHE[key]

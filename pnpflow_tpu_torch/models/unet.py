@@ -26,7 +26,17 @@ channels_last view.  ``fused_norm`` selects the GroupNorm path:
   Attention norms stay plain, as in the JAX package.  The kernel has no
   backward and no forward-mode rule, so this mode is forward-only: it
   raises where a gradient or a tangent would be taken (differentiate with
-  ``False``, ``True`` or ``"bm"``).
+  ``False``, ``True`` or ``"bm"``);
+* ``"dot"``, ``"tview"``, ``"bf16stats"``: the JAX package's XLA-only
+  GroupNorm variants, in plain PyTorch (no kernel: JAX's are plain XLA
+  too), differentiable like ``False``: moments as sums in float32 over
+  the (h w) axis then the group (``"dot"``, JAX's contraction against a
+  ones vector) or over a (b, g, hw cg) view (``"tview"``), one pass
+  E[x^2] - E[x]^2, the normalize in float32; ``"bf16stats"`` keeps
+  everything in the compute dtype, two-pass mean and centred variance.
+  Where JAX accumulates a bfloat16 ``"bf16stats"`` reduction in bfloat16,
+  torch's sum accumulates wider and rounds once, so bf16 results differ by
+  a few bfloat16 ulps.
 
 ``dtype`` is the compute dtype (float32 or bfloat16); parameters stay
 float32 and are cast per call (the conv kernel's reordered weights are
@@ -48,21 +58,61 @@ from pnpflow_tpu_torch.ops.gn_swish import (
     gn_swish_reference, groupnorm_swish, needs_autograd)
 from pnpflow_tpu_torch.ops.gn_swish_bm import groupnorm_swish_bm
 
-_NOT_PORTED = {
-    "dot": "ROADMAP queue 1, item 15 (XLA-only GroupNorm variants)",
-    "bf16stats": "ROADMAP queue 1, item 15 (XLA-only GroupNorm variants)",
-    "tview": "ROADMAP queue 1, item 15 (XLA-only GroupNorm variants)",
-}
+FUSED_NORMS = (False, True, "bm", "conv", "dot", "tview", "bf16stats")
 
 
 def check_fused_norm(fused_norm):
-    if isinstance(fused_norm, str) and fused_norm in _NOT_PORTED:
-        raise NotImplementedError(
-            f"fused_norm={fused_norm!r} is not ported yet: "
-            f"{_NOT_PORTED[fused_norm]}")
-    if fused_norm not in (False, True, "bm", "conv"):
-        raise ValueError(f"unknown fused_norm {fused_norm!r}")
+    if fused_norm not in FUSED_NORMS:
+        raise ValueError(f"unknown fused_norm {fused_norm!r}: one of "
+                         f"{FUSED_NORMS}")
     return fused_norm
+
+
+def _finish(y, weight, bias, swish: bool):
+    y = y * weight + bias
+    return y * torch.sigmoid(y) if swish else y
+
+
+def gn_f32_stats(x, weight, bias, swish: bool, groups: int = 32,
+                 eps: float = 1e-6):
+    """JAX's ``DotStatsGroupNorm`` and ``TViewStatsGroupNorm``: each
+    group's sums of x and of x*x (the square in x's dtype) in float32, the
+    one-pass variance, the normalize in float32, cast back to x's dtype.
+    JAX's two lay their reductions out differently for the TPU (per-channel
+    sums then per-group, or a transposed view); the arithmetic is the same,
+    so the port has one function for both."""
+    b, h, w, c = x.shape
+    cg = c // groups
+    xt = x.reshape(b, h * w, groups, cg).transpose(1, 2).reshape(
+        b, groups, h * w * cg)
+    inv_n = 1.0 / (h * w * cg)
+    mean = xt.float().sum(2) * inv_n
+    var = (xt * xt).float().sum(2) * inv_n - mean * mean
+    inv = torch.rsqrt(var + eps)
+    mean_c = mean.repeat_interleave(cg, dim=1)[:, None, None, :]
+    inv_c = inv.repeat_interleave(cg, dim=1)[:, None, None, :]
+    return _finish((x.float() - mean_c) * inv_c, weight, bias,
+                   swish).to(x.dtype)
+
+
+def gn_lowprec_stats(x, weight, bias, swish: bool, groups: int = 32,
+                     eps: float = 1e-6):
+    """JAX's ``LowPrecStatsGroupNorm``: the statistics in x's dtype, two
+    passes (mean, then the centred variance), the rsqrt in float32 and cast
+    back; scale, bias and swish in x's dtype."""
+    b, h, w, c = x.shape
+    dt = x.dtype
+    xg = x.reshape(b, h * w, groups, c // groups)
+    mean = xg.mean(dim=(1, 3), keepdim=True, dtype=dt)
+    d = xg - mean
+    var = (d * d).mean(dim=(1, 3), keepdim=True, dtype=dt)
+    inv = torch.rsqrt(var.float() + eps).to(dt)
+    y = (d * inv).reshape(b, h, w, c)
+    return _finish(y, weight.to(dt), bias.to(dt), swish)
+
+
+_PLAIN_NORMS = {"dot": gn_f32_stats, "tview": gn_f32_stats,
+                "bf16stats": gn_lowprec_stats}
 
 
 def sinusoidal_embedding(t, dim: int):
@@ -140,6 +190,8 @@ def _gn(x, norm: nn.GroupNorm, fused, swish: bool):
         return groupnorm_swish(x, norm.weight, norm.bias, 32, 1e-6, swish)
     if fused == "bm":
         return groupnorm_swish_bm(x, norm.weight, norm.bias, 32, 1e-6, swish)
+    if fused in _PLAIN_NORMS:
+        return _PLAIN_NORMS[fused](x, norm.weight, norm.bias, swish)
     return gn_swish_reference(x, norm.weight, norm.bias, 32, 1e-6, swish)
 
 

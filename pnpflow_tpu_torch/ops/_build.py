@@ -6,7 +6,7 @@ into a plain-C shared library and loaded with ``ctypes``.  Libraries go to
 every ``csrc/*.cuh`` header and the nvcc flags, so an edited source, header
 or flag is rebuilt and an unchanged one is reused.  Nothing is
 built when a module is imported: the first call that needs a library builds
-it.
+it.  :func:`count_launch` is how every wrapper counts its launches.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -108,3 +109,16 @@ def load(name: str):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn, **by) -> None:
+    """Add one to ``fn.launches`` and, for each ``name=key``, to
+    ``fn.<name>[key]``, under one lock: shards launch from several threads
+    (``parallel.mesh.fan_out``), and a bare ``+= 1`` can lose a count."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+        for name, key in by.items():
+            getattr(fn, name)[key] += 1

@@ -12,6 +12,7 @@ are byte-identical) and stored on the device.
 
 from __future__ import annotations
 
+import copy
 import random as _pyrandom
 
 import numpy as np
@@ -259,6 +260,20 @@ class Superresolution(Degradation):
         m = np.zeros((1, self.dim_image, self.dim_image, 1), dtype=np.float32)
         m[:, ::self.sf, ::self.sf, :] = 1.0
         return m
+
+
+def degradation_on(deg: Degradation, device, rows=None) -> Degradation:
+    """A copy of ``deg`` with its tensors on ``device``; a per-image mask
+    (one row an image) keeps only ``rows`` (start, stop): the operator of
+    a shard of the batch on another device."""
+    out = copy.copy(deg)
+    for k, v in vars(deg).items():
+        if isinstance(v, torch.Tensor):
+            setattr(out, k, v.to(device))
+    if rows is not None and isinstance(deg, MaskedInpainting) \
+            and deg.mask.shape[0] > 1:
+        out.mask = out.mask[rows[0]:rows[1]]
+    return out
 
 
 def make_degradation(args, batch_size: int | None = None, device=None):

@@ -252,7 +252,7 @@ def conv3x3_gn(x, w, b, *, prologue=None, sample_bias=None, residual=None,
                      plan.bn, plan.tw, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_gn launch failed (error {err})")
-    conv3x3_gn.launches += 1
+    _build.count_launch(conv3x3_gn)
     return y, mom
 
 

@@ -247,7 +247,7 @@ def groupnorm_swish_fwd(x, scale, bias, num_groups: int = 32,
     if x.device.type == "cpu":
         return gn_swish_reference(x, scale, bias, num_groups, eps, swish)
     y = launch(x, scale, bias, num_groups, eps, swish, plan)
-    groupnorm_swish_fwd.launches += 1
+    _build.count_launch(groupnorm_swish_fwd)
     return y
 
 

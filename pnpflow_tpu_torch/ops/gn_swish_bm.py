@@ -24,6 +24,7 @@ plain version, for CPU tensors and as the yardstick, is
 
 from __future__ import annotations
 
+from pnpflow_tpu_torch.ops import _build
 from pnpflow_tpu_torch.ops.gn_swish import (
     _GroupNormSwish, check_args, gn_swish_reference, launch, needs_autograd)
 
@@ -40,7 +41,7 @@ def groupnorm_swish_bm_fwd(x, scale, bias, num_groups: int = 32,
     if x.device.type == "cpu":
         return gn_swish_reference(x, scale, bias, num_groups, eps, swish)
     y = launch(x, scale, bias, num_groups, eps, swish, plan)
-    groupnorm_swish_bm_fwd.launches += 1
+    _build.count_launch(groupnorm_swish_bm_fwd)
     return y
 
 

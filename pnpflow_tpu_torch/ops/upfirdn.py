@@ -302,9 +302,7 @@ def _upfirdn2d_fwd(x, k, up, down, pad, role):
     if err != 0:
         raise RuntimeError(f"upfirdn2d launch failed (error {err}) for "
                            f"{tuple(x.shape)} {x.dtype}: {plan}")
-    upfirdn2d.launches += 1
-    upfirdn2d.paths[plan.path] += 1
-    upfirdn2d.roles[role] += 1
+    _build.count_launch(upfirdn2d, paths=plan.path, roles=role)
     return y
 
 

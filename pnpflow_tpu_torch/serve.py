@@ -20,8 +20,24 @@ starts from the alpha that the deblurring backtracking of the requests
 before it shrank, so that its output depends on what it served earlier.
 Every method and problem of the CLI is valid; the config is the CLI's
 three-tier YAML with ``overrides`` in place of ``--opts``.  It runs on ``cuda`` unless ``device`` says otherwise, with
-TF32 off in float32 as the CLI runs.  There is one card: ``shard=True`` and
-``n_devices`` raise (ROADMAP queue 1, item 7).
+TF32 off in float32 as the CLI runs.
+
+``shard=True`` fans each request batch out over ``n_devices`` cards (all
+visible by default; ``devices`` names them, as a test names ``["cpu",
+"cpu"]``): a copy of the model, the operator and the solver on each, the
+batch split into equal shards that run at the same time, one thread each
+(``parallel/mesh.py``).  The shards draw the solver's noise for the whole
+batch and keep their own images' (``solvers/base.py:draw_rows``), so a
+sharded restoration equals the unsharded one.  A batch that does not divide
+over the devices raises, as does ``n_devices`` above the visible count.
+Three restorations couple the images of a batch, so a shard of them would
+be another restoration, and ``shard=True`` refuses them: ``d_flow`` (its
+LBFGS line search runs over the whole batch), ``pnp_gs`` with ``algo hqs``
+on ``gaussian_deblurring_FFT`` (its step-size backtracking decides on the
+whole batch) and ``ot_ode`` on ``superresolution_bicubic`` (GMRES over the
+whole batch).  ``flow_priors`` shards run one after the other from this
+thread (their JVPs' forward-mode levels are process-wide state); on several
+cards their launches still overlap as far as the host runs ahead.
 """
 
 from __future__ import annotations
@@ -33,13 +49,28 @@ import torch
 
 from pnpflow_tpu_torch.device import resolve_device, set_fp32_parity_mode
 from pnpflow_tpu_torch.models.registry import build_model_bundle
-from pnpflow_tpu_torch.ops.degradations import make_degradation
-from pnpflow_tpu_torch.solvers.base import draw_noise
+from pnpflow_tpu_torch.ops.degradations import (
+    degradation_on, make_degradation)
+from pnpflow_tpu_torch.parallel import mesh
+from pnpflow_tpu_torch.solvers.base import ModelBundle, draw_noise
 from pnpflow_tpu_torch.solvers.factory import build_solver
 from pnpflow_tpu_torch.utils.config import load_full_config
 
 # the shipped config/ tree, one level above the package
 CONFIG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def batch_coupling(args):
+    """Why ``args``' restoration couples the images of a batch, or None."""
+    if args.method == "d_flow":
+        return "d_flow's LBFGS line search runs over the whole batch"
+    if (args.method == "pnp_gs" and args.algo == "hqs"
+            and args.problem == "gaussian_deblurring_FFT"):
+        return ("pnp_gs hqs deblurring backtracks its step size on the "
+                "whole batch")
+    if args.method == "ot_ode" and args.problem == "superresolution_bicubic":
+        return "ot_ode's GMRES on bicubic SR runs over the whole batch"
+    return None
 
 
 class Restorer:
@@ -59,11 +90,9 @@ class Restorer:
                  overrides: dict | None = None, dtype=torch.float32,
                  device=None, shard: bool = False,
                  n_devices: int | None = None,
-                 output_root: str | None = None):
-        if shard or n_devices is not None:
-            raise NotImplementedError(
-                "sharded serving needs several cards; the port runs on one "
-                "(ROADMAP queue 1, item 7)")
+                 output_root: str | None = None, devices=None):
+        if not shard and (n_devices is not None or devices is not None):
+            raise ValueError("n_devices and devices need shard=True")
         self.device = resolve_device(device)
         opts = ["dataset", "synthetic", "model", model, "method", method,
                 "problem", problem, "noise_type", noise_type,
@@ -89,6 +118,28 @@ class Restorer:
         self.sigma_noise = float(sigma_noise if sigma_noise is not None
                                  else default_sigma)
         self.solver = build_solver(self.bundle, args)
+        self.shards = None
+        if shard:
+            self._shard(batch_size, n_devices, devices)
+
+    def _shard(self, batch_size, n_devices, devices):
+        """One (solver, operator) per device, the first on this device."""
+        why = batch_coupling(self.args)
+        if why is not None:
+            raise ValueError(f"shard=True would change the restoration: "
+                             f"{why}")
+        devs = ([torch.device(d) for d in devices] if devices is not None
+                else mesh.devices(n_devices, self.device))
+        self.devices = devs
+        models = mesh.replicate(self.bundle.model, devs)
+        # a per-image mask is cut by the configured batch's shards
+        rows = mesh.batch_rows(batch_size, len(devs))
+        self.shards = []
+        for d, m, r in zip(devs, models, rows):
+            b = ModelBundle(model=m, device=d, kind=self.bundle.kind,
+                            remat=self.bundle.remat)
+            self.shards.append((build_solver(b, self.args),
+                                degradation_on(self.degradation, d, r)))
 
     def degrade(self, clean, seed: int = 0):
         """y = H(clean) + sigma * noise, the noise (gaussian or laplace)
@@ -102,17 +153,37 @@ class Restorer:
 
     def restore(self, noisy, seed: int = 0):
         """Restore one NHWC measurement batch -> numpy array; ``seed`` keys
-        the solver's randomness, as the batch index does in the CLI."""
-        noisy = torch.as_tensor(noisy, dtype=torch.float32,
-                                device=self.device)
+        the solver's randomness, as the batch index does in the CLI.
+        Sharded, the batch is split over the devices."""
+        if self.shards is None:
+            noisy = torch.as_tensor(noisy, dtype=torch.float32,
+                                    device=self.device)
+            return self._solve(self.solver, self.degradation, noisy,
+                               seed).numpy()
+        noisy = torch.as_tensor(noisy, dtype=torch.float32)
+        total = noisy.shape[0]
+        rows = mesh.batch_rows(total, len(self.devices))
+        parts = mesh.shard_batch(noisy, self.devices)
+
+        def run(k, part):
+            solver, deg = self.shards[k]
+            solver.rows = (*rows[k], total)
+            with mesh.on(self.devices[k]):
+                return self._solve(solver, deg, part, seed)
+
+        # flow_priors takes JVPs: its shards run one after the other
+        return torch.cat(mesh.fan_out(
+            run, parts, threads=self.args.method != "flow_priors")).numpy()
+
+    def _solve(self, solver, degradation, noisy, seed):
         if self.args.method == "pnp_gs":
             # each request starts from args.alpha, not from the alpha that
             # an earlier request's backtracking shrank
-            self.solver._alpha_carry = float(self.args.alpha)
-        with self.solver.grad_mode():
-            out, _ = self.solver.solve_batch(
-                noisy, noisy, self.degradation, self.sigma_noise, int(seed))
-        return out.float().cpu().numpy()
+            solver._alpha_carry = float(self.args.alpha)
+        with solver.grad_mode():
+            out, _ = solver.solve_batch(
+                noisy, noisy, degradation, self.sigma_noise, int(seed))
+        return out.float().cpu()
 
     def warmup(self, batch_size: int | None = None):
         """One restoration of zeros, before traffic."""

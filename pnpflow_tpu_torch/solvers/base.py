@@ -4,11 +4,16 @@ Port of ``pnpflow_tpu/solvers/base.py``.  The outer loop iterates
 ``max_batch`` test batches, draws each measurement from a generator seeded
 with the batch index, runs the solver, and reports metrics and time/memory
 stats in the reference's result layout.  A split shorter than ``max_batch``
-ends the loop gracefully.
+ends the loop gracefully.  ``--opts jax_profile <dir>`` (the CLI contract's
+key) wraps the whole loop in ``torch.profiler.profile`` (CPU, and CUDA on
+the card) and writes a Chrome trace into ``<dir>``, as JAX's
+``start_trace`` / ``stop_trace`` bracket it; ``python -m
+pnpflow_tpu_torch.utils.profile_report <dir>`` tabulates it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import warnings
@@ -61,6 +66,19 @@ def draw_noise(shape, noise_type, generator, device, dtype):
     raise ValueError("Noise type not supported")
 
 
+def draw_rows(draw, shape, rows=None, dim: int = 0):
+    """``draw(shape)``; with ``rows = (start, stop, total)``, rows
+    start:stop along ``dim`` of the draw for the whole batch of ``total``:
+    a shard of a batch fanned out over several devices gets the very noise
+    that the unsharded call gives those images."""
+    if rows is None:
+        return draw(tuple(shape))
+    start, stop, total = rows
+    full = list(shape)
+    full[dim] = total
+    return draw(tuple(full)).narrow(dim, start, stop - start)
+
+
 def measure(H, clean, sigma_noise, noise_type, batch: int, noise=None):
     """y = H(clean) + sigma * noise, noise from a generator seeded
     ``batch`` on clean's device, or the given ``noise`` (the verification
@@ -70,6 +88,24 @@ def measure(H, clean, sigma_noise, noise_type, batch: int, noise=None):
         gen = torch.Generator(device=clean.device).manual_seed(int(batch))
         noise = draw_noise(y.shape, noise_type, gen, y.device, y.dtype)
     return y + sigma_noise * noise
+
+
+@contextlib.contextmanager
+def profile_run(directory: str, device):
+    """``torch.profiler.profile`` over the block, CPU activities and, on a
+    CUDA device, the card's; the trace is written on exit to
+    ``directory/trace_<pid>_<ns>.json`` (the profiler's ``trace_path``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.trace_path = os.path.join(
+        directory, "trace_{}_{}.json".format(os.getpid(), time.time_ns()))
+    prof.export_chrome_trace(prof.trace_path)
 
 
 def peak_memory_info(device) -> tuple:
@@ -97,6 +133,9 @@ class Solver:
     bookkeeping."""
 
     differentiates = False
+    # (start, stop, total): the rows of a batch that a fanned-out shard
+    # restores (serve.py); its random draws are the whole batch's rows
+    rows = None
 
     def __init__(self, model: ModelBundle, args):
         self.model = model
@@ -121,8 +160,12 @@ class Solver:
                 else torch.inference_mode())
 
     def solve_ip(self, test_loader, degradation, sigma_noise):
-        with self.grad_mode():
+        profile_dir = getattr(self.args, "jax_profile", None)
+        with (profile_run(str(profile_dir), self.model.device) if profile_dir
+              else contextlib.nullcontext()) as prof, self.grad_mode():
             self._solve_ip(test_loader, degradation, sigma_noise)
+        if profile_dir:
+            print("profile trace:", prof.trace_path)
 
     def _solve_ip(self, test_loader, degradation, sigma_noise):
         args = self.args

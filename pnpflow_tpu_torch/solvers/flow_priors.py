@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from pnpflow_tpu_torch.solvers.base import Solver
+from pnpflow_tpu_torch.solvers.base import Solver, draw_rows
 
 f32 = np.float32
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -135,11 +135,14 @@ class FlowPriors(Solver):
         gen = torch.Generator(device=dev).manual_seed(1000 + int(batch))
         if x_init is None:
             # in the clean image's shape (flow_priors.py:57-58)
-            x_init = torch.randn(clean_img.shape, generator=gen, device=dev,
-                                 dtype=clean_img.dtype)
+            x_init = draw_rows(
+                lambda s: torch.randn(s, generator=gen, device=dev,
+                                      dtype=clean_img.dtype),
+                clean_img.shape, self.rows)
         if probes is None:
             def probe(i, k):
-                return rademacher(x_init.shape, gen, dev)
+                return draw_rows(lambda s: rademacher(s, gen, dev),
+                                 x_init.shape, self.rows)
         else:
             def probe(i, k):
                 return probes[i][k].to(device=dev, dtype=x_init.dtype)

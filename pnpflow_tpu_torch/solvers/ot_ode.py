@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from pnpflow_tpu_torch.ops.linalg import gmres
-from pnpflow_tpu_torch.solvers.base import Solver
+from pnpflow_tpu_torch.solvers.base import Solver, draw_rows
 
 _MASK_PROBLEMS = ("inpainting", "random_inpainting", "paintbrush_inpainting")
 f32 = np.float32
@@ -142,8 +142,10 @@ class OTOde(Solver):
             gen = torch.Generator(device=noisy_img.device).manual_seed(
                 1000 + int(batch))
             y_adj = degradation.H_adj(noisy_img)
-            eps = torch.randn(y_adj.shape, generator=gen,
-                              device=y_adj.device, dtype=y_adj.dtype)
+            eps = draw_rows(
+                lambda s: torch.randn(s, generator=gen, device=y_adj.device,
+                                      dtype=y_adj.dtype),
+                y_adj.shape, self.rows)
             x_init = start_time * y_adj + (1.0 - start_time) * eps
         x, done = x_init, first_iter
         for r in (report_points(steps, first_iter)

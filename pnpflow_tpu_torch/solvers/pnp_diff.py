@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pnpflow_tpu_torch.solvers.base import Solver
+from pnpflow_tpu_torch.solvers.base import Solver, draw_rows
 
 _MASK_PROBLEMS = ("inpainting", "random_inpainting", "paintbrush_inpainting")
 _T = 1000
@@ -115,11 +115,12 @@ def make_prox(problem, degradation, sigma_noise, noise_type):
 
 
 def make_diffpir_solver(model_fn, prox, H_adj, *, lmbda: float, zeta: float,
-                        max_iter: int, sigma_noise: float):
+                        max_iter: int, sigma_noise: float, rows=None):
     """Build ``solve(y01, generator=None, noise_seq=None) -> x``;
     ``model_fn(x_nhwc, t_vec)`` predicts eps in its first C channels.
     ``noise_seq``, a sequence of tensors, replaces the draws: ``[0]`` is the
-    start's noise, ``[k]`` step k's."""
+    start's noise, ``[k]`` step k's.  ``rows`` (start, stop, total): each
+    draw is the whole batch's, these images' kept (a fanned-out shard)."""
     f32 = np.float32
     acp, sigmas = schedules()
     ts, ts_next = timesteps(max_iter)
@@ -140,8 +141,10 @@ def make_diffpir_solver(model_fn, prox, H_adj, *, lmbda: float, zeta: float,
     def noise(k, like, generator, noise_seq):
         if noise_seq is not None:
             return noise_seq[k].to(device=like.device, dtype=like.dtype)
-        return torch.randn(like.shape, generator=generator,
-                           device=like.device, dtype=like.dtype)
+        return draw_rows(
+            lambda s: torch.randn(s, generator=generator,
+                                  device=like.device, dtype=like.dtype),
+            like.shape, rows)
 
     def solve(y01, generator=None, noise_seq=None):
         x0_init = 2.0 * H_adj(y01) - 1.0
@@ -178,7 +181,8 @@ class PnPDiff(Solver):
         solve = make_diffpir_solver(
             self.model.forward, prox, degradation.H_adj,
             lmbda=float(args.lmbda), zeta=float(args.zeta),
-            max_iter=int(args.max_iter), sigma_noise=float(sigma_noise))
+            max_iter=int(args.max_iter), sigma_noise=float(sigma_noise),
+            rows=self.rows)
         gen = torch.Generator(device=noisy_img.device).manual_seed(
             1000 + int(batch))
         return solve((noisy_img + 1.0) / 2.0, gen, noise_seq), 100

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pnpflow_tpu_torch.solvers.base import Solver
+from pnpflow_tpu_torch.solvers.base import Solver, draw_rows
 
 
 def _gamma(style: str, lr, t, alpha: float):
@@ -38,13 +38,16 @@ def _gamma(style: str, lr, t, alpha: float):
 
 def make_pnp_flow_solver(model_fn, H, H_adj, *, steps: int, num_samples: int,
                          lr_pnp: float, gamma_style: str, alpha: float,
-                         noise_type: str, sigma_noise: float, eps_seq=None):
+                         noise_type: str, sigma_noise: float, eps_seq=None,
+                         rows=None):
     """Build ``solve(y, x, generator, start_iter, n_iters) -> x``, running
     ``n_iters`` PnP steps from global iteration ``start_iter``.
 
     ``model_fn(x_nhwc, t_vec) -> v``.  ``eps_seq`` is the verification
     seam: a tensor ``(steps, num_samples, b, h, w, c)`` holding the MC noise
     of every global iteration, in place of draws from ``generator``.
+    ``rows`` (start, stop, total): draw the MC noise of the whole batch of
+    ``total`` and keep these images' (a fanned-out shard).
     """
     if noise_type == "gaussian":
         lr = np.float32(sigma_noise**2 * lr_pnp)
@@ -65,8 +68,10 @@ def make_pnp_flow_solver(model_fn, H, H_adj, *, steps: int, num_samples: int,
         if eps_seq is not None:
             eps = eps_seq[global_iter].to(device=z.device, dtype=z.dtype)
         else:
-            eps = torch.randn((num_samples, b, h, w, c), generator=generator,
-                              device=z.device, dtype=z.dtype)
+            eps = draw_rows(
+                lambda s: torch.randn(s, generator=generator,
+                                      device=z.device, dtype=z.dtype),
+                (num_samples, b, h, w, c), rows, dim=1)
         t_, s_ = float(t), float(np.float32(1) - t)
         flat = (t_ * z[None] + s_ * eps).reshape(num_samples * b, h, w, c)
         t_vec = torch.full((num_samples * b,), t_, dtype=torch.float32,
@@ -105,6 +110,7 @@ class PnPFlow(Solver):
             lr_pnp=float(args.lr_pnp), gamma_style=args.gamma_style,
             alpha=float(getattr(args, "alpha", 1.0)),
             noise_type=args.noise_type, sigma_noise=float(sigma_noise),
+            rows=self.rows,
         )
         gen = torch.Generator(device=noisy_img.device).manual_seed(
             1000 + int(batch))

@@ -26,6 +26,16 @@ power iteration on J_Dg^T, a VJP of Dg, one order higher still, and is
 differentiated through every iteration, as in JAX.  Checkpoints are the
 parameters in the JAX package's msgpack envelope with the ``gradient_step``
 fingerprint, so each package reads the other's.
+
+Data parallelism (``parallel/mesh.py``), as in the flow-matching trainer:
+under ``torchrun`` every rank sees the same global batch and the same
+sigma, draws the noise u (and the power iteration's start) for the whole
+of it from the same seeded generator, keeps its rows, and normalises its
+loss and MSE by the global batch; ``all_reduce_grads`` then sums the
+ranks' gradients into the full-batch gradient.  The trainer is not wrapped
+in ``DistributedDataParallel``: its loss differentiates a
+``torch.autograd.grad(..., create_graph=True)`` taken inside the forward,
+which DDP's reducer hooks do not support.  Rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -38,11 +48,11 @@ import torch
 import torch.nn as nn
 
 from pnpflow_tpu_torch.data.prefetch import prefetch
-from pnpflow_tpu_torch.device import resolve_device
 from pnpflow_tpu_torch.models.registry import (
     define_model, model_fingerprint, save_params_file)
 from pnpflow_tpu_torch.models.unet import init_weights
-from pnpflow_tpu_torch.training.flow_matching import _StepClock
+from pnpflow_tpu_torch.parallel import mesh
+from pnpflow_tpu_torch.training.flow_matching import _StepClock, local_rows
 from pnpflow_tpu_torch.utils.jax_params import flax_from_state_dict
 
 LR_MILESTONES = (300, 600, 900, 1200)
@@ -139,12 +149,13 @@ class GSState:
 
 
 class GradientStepTrainer:
-    """The reference-compatible trainer (train_denoiser.py:162-256) on one
-    device (``args.device``, default ``cuda``)."""
+    """The reference-compatible trainer (train_denoiser.py:162-256) on
+    ``args.device`` (default ``cuda``), one card per rank under a process
+    group (see the module's notes)."""
 
     def __init__(self, args, model=None, device=None):
         self.args = args
-        self.device = resolve_device(
+        self.device = mesh.rank_device(
             getattr(args, "device", None) if device is None else device)
         self.model = (model if model is not None
                       else define_model(args, train=True)).to(self.device)
@@ -167,11 +178,15 @@ class GradientStepTrainer:
         self.stats = {"step_seconds": [], "losses": [], "sigmas": []}
 
     # -- step ----------------------------------------------------------------
-    def loss_fn(self, y, sigma: float, u, v0=None, generator=None):
+    def loss_fn(self, y, sigma: float, u, v0=None, generator=None,
+                batch=None):
         """``(loss, mse)`` at x = y + sigma u: the per-image MSE of D(x)
         against y, averaged, plus the Jacobian penalty when its weight is
         positive (its power iteration starts from ``v0`` or draws from
-        ``generator``), and the batch MSE."""
+        ``generator``), and the batch MSE; both sums over y's images divided
+        by ``batch`` images (y's unless given: a rank's rows are normalised
+        by the global batch)."""
+        batch = batch or y.shape[0]
         x = y + sigma * u
         sigma_vec = torch.full((y.shape[0],), sigma, dtype=torch.float32,
                                device=y.device)
@@ -189,23 +204,35 @@ class GradientStepTrainer:
             else:
                 jloss = torch.exp(jn - (1.0 + self.eps_jacobian_loss))
             per_image = per_image + jw * jloss.clamp(0.0, 1e3)
-        return per_image.mean(), err.mean()
+        return per_image.sum() / batch, err.sum() / (batch * err[0].numel())
 
     def train_step(self, state: GSState, y, sigma: float, generator=None,
                    u=None, v0=None):
         """One Adam update; returns ``(loss, psnr)``, detached and left on
         the device.  ``u`` ~ N(0, I) comes from ``generator`` unless given;
-        the PSNR is the pre-update batch's against data range 2."""
+        the PSNR is the pre-update batch's against data range 2.  ``y`` is
+        the global batch: under a process group each rank trains on its
+        rows, and the loss and PSNR are the global batch's."""
+        batch = y.shape[0]
         with torch.enable_grad():
             if u is None:
                 u = torch.randn(y.shape, generator=generator,
                                 dtype=y.dtype, device=y.device)
-            loss, mse = self.loss_fn(y, sigma, u, v0, generator)
+            if v0 is None and self.jacobian_loss_weight > 0:
+                v0 = torch.rand(y.shape, generator=generator,
+                                dtype=y.dtype, device=y.device)
+            y, u = local_rows(y, u)
+            if v0 is not None:
+                (v0,) = local_rows(v0)
+            loss, mse = self.loss_fn(y, sigma, u, v0, generator, batch)
             params = list(state.model.parameters())
             grads = torch.autograd.grad(loss, params, allow_unused=True,
                                         materialize_grads=True)
         for p, g in zip(params, grads):
             p.grad = g
+        mesh.all_reduce_grads(params)
+        loss = mesh.all_reduce_sum(loss.detach())
+        mse = mesh.all_reduce_sum(mse.detach())
         for group in state.optimizer.param_groups:
             group["lr"] = milestone_lr(self.lr, self.lr_milestone_steps,
                                        state.step)
@@ -238,12 +265,15 @@ class GradientStepTrainer:
         dev = self.device
         state = self.init_state(seed)
         n_params = sum(p.numel() for p in state.model.parameters())
-        with open(os.path.join(self.results_dir, "model_info.txt"), "w") as f:
-            f.write("PARAMETERS\n")
-            f.write("Number of parameters: {}\n".format(n_params))
-            f.write("Number of epochs: {}\n".format(args.num_epoch))
-            f.write("Batch size: {}\n".format(args.batch_size_train))
-            f.write("Learning rate: {}\n".format(self.lr))
+        writer = mesh.is_writer()
+        if writer:
+            with open(os.path.join(self.results_dir, "model_info.txt"),
+                      "w") as f:
+                f.write("PARAMETERS\n")
+                f.write("Number of parameters: {}\n".format(n_params))
+                f.write("Number of epochs: {}\n".format(args.num_epoch))
+                f.write("Batch size: {}\n".format(args.batch_size_train))
+                f.write("Learning rate: {}\n".format(self.lr))
 
         train_loader = prefetch(data_loaders["train"], device=dev)
         rng = _pyrandom.Random(seed)
@@ -270,6 +300,8 @@ class GradientStepTrainer:
             values = torch.stack(losses).tolist() if losses else []
             self.stats["step_seconds"] += clock.seconds()
             self.stats["losses"] += values
+            if not writer:
+                continue
             with open(loss_file, "a") as f:
                 f.writelines("Epoch: {}, iter: {}, Loss: {}\n".format(
                     ep, it, v) for it, v in zip(iters, values))
@@ -279,9 +311,12 @@ class GradientStepTrainer:
                 f.write("Epoch: {}, Loss: {}, PSNR: {}\n".format(
                     ep, values[-1] if values else float("nan"),
                     float(psnr) if psnr is not None else float("nan")))
-        self.save_params(state, "gradient_step_denoiser_final.msgpack")
-        # also under the registry's name, which the eval half loads
-        self.save_params(state, "model_final.msgpack")
+        if writer:
+            self.save_params(state, "gradient_step_denoiser_final.msgpack")
+            # also under the registry's name, which the eval half loads
+            self.save_params(state, "model_final.msgpack")
+        # the other ranks return once rank 0 has written the final files
+        mesh.barrier()
         if dev.type == "cuda":
             self.stats["max_memory_allocated"] = \
                 torch.cuda.max_memory_allocated(dev)

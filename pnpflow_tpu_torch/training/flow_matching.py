@@ -29,8 +29,26 @@ an ``epoch fid`` row to ``FID_5k.txt``: the EMA weights, Euler in 10 steps,
 skipped" on any error, the port lets it propagate: a swallowed failure
 would hide a broken metric path.
 
-Not ported (ROADMAP queue 1 item 7): data parallelism over several cards
-(``parallel/mesh.py``) and the Orbax checkpoint backend; each raises.
+Data parallelism (``parallel/mesh.py``): under ``torchrun --nproc_per_node
+N -m pnpflow_tpu_torch --opts train True ...`` each rank is one process on
+one card.  The coupling stays global, as in JAX's single-controller step:
+every rank loads the same global batch (the loaders are seeded), draws x0
+and t for the whole of it from the same seeded generators, pairs it (the
+exact OT on the host or Sinkhorn on its card, the same pairs on every rank)
+and keeps only its :func:`~pnpflow_tpu_torch.parallel.mesh.
+process_batch_slice` of the pairs.  Its loss is normalised by the global
+batch, so the ranks' gradients summed by ``all_reduce_grads`` are the
+full-batch gradient and every rank takes the same Adam and EMA step; the
+logged loss is the all-reduced one.  Rank 0 alone writes
+``loss_training.txt``, the checkpoints, the resume state and ``FID_5k.txt``;
+the others meet it at a barrier at the end.
+
+The resume state goes through one checkpointer
+(``training/checkpoint.py``): by default
+:class:`~pnpflow_tpu_torch.training.checkpoint.FileCheckpointer`, the single
+``train_state.msgpack``; under ``ckpt_backend orbax``
+:class:`~pnpflow_tpu_torch.training.checkpoint.OrbaxCheckpointer`, versioned
+step directories under ``model_dir/orbax`` written asynchronously.
 """
 
 from __future__ import annotations
@@ -47,20 +65,21 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from pnpflow_tpu_torch.data.prefetch import prefetch, to_device
-from pnpflow_tpu_torch.device import resolve_device
 from pnpflow_tpu_torch.metrics.generative import ComputeMetric
 from pnpflow_tpu_torch.models.registry import (
-    checked_state_dict, define_model, model_fingerprint, read_msgpack,
-    save_params_file, write_msgpack)
+    checked_state_dict, define_model, model_fingerprint, save_params_file)
 from pnpflow_tpu_torch.models.unet import init_weights
 from pnpflow_tpu_torch.ops.ode import odeint_dopri5
 from pnpflow_tpu_torch.ops.ot import host_ot_pair, ot_pair_indices
+from pnpflow_tpu_torch.parallel import mesh
 from pnpflow_tpu_torch.solvers.base import ModelBundle
+from pnpflow_tpu_torch.training.checkpoint import (
+    FileCheckpointer, OrbaxCheckpointer)
 from pnpflow_tpu_torch.utils.jax_params import (
     adam_state_dict_from_flax, flax_adam_state, flax_from_state_dict,
     state_dict_from_flax)
 
-STATE_KEYS = {"params", "opt_state", "ema", "step", "epochs_done"}
+STATE_KEYS = {"params", "opt_state", "ema", "step"}
 
 
 @dataclass
@@ -84,22 +103,24 @@ def new_state(model: nn.Module, lr: float) -> TrainState:
 
 
 def make_fm_loss(model: nn.Module, remat: bool = False):
-    """Flow-matching loss ``(x0, x1, t) -> sum((v - (x1 - x0))^2) / B`` on an
-    already-coupled pair batch.  ``remat`` recomputes the model's
-    activations in the backward (non-reentrant ``torch.utils.checkpoint``),
-    as ``jax.checkpoint`` does, trading a forward for memory."""
+    """Flow-matching loss ``(x0, x1, t, batch=None) -> sum((v - (x1 -
+    x0))^2) / batch`` on an already-coupled pair batch; ``batch`` is x1's
+    unless given (a rank's rows are normalised by the global batch).
+    ``remat`` recomputes the model's activations in the backward
+    (non-reentrant ``torch.utils.checkpoint``), as ``jax.checkpoint``
+    does, trading a forward for memory."""
 
     def apply(xt, t):
         if remat:
             return checkpoint(model, xt, t, use_reentrant=False)
         return model(xt, t)
 
-    def loss_fn(x0, x1, t):
+    def loss_fn(x0, x1, t, batch=None):
         tb = t[:, None, None, None]
         xt = tb * x1 + (1.0 - tb) * x0
         v = apply(xt, t)
         # the reference normalizes by the batch size only
-        return ((v - (x1 - x0)) ** 2).sum() / x1.shape[0]
+        return ((v - (x1 - x0)) ** 2).sum() / (batch or x1.shape[0])
 
     return loss_fn
 
@@ -112,16 +133,25 @@ def ema_step(ema: list, params: list, decay: float):
 
 
 def apply_updates(state: TrainState, loss: torch.Tensor, ema_decay: float):
-    """Backward, one Adam step, the EMA, the step count; returns the loss,
-    detached and left on its device."""
+    """Backward, the gradients summed over the ranks (under a process
+    group), one Adam step, the EMA, the step count; returns the loss summed
+    over the ranks, detached and left on its device."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    mesh.all_reduce_grads(state.model.parameters())
     state.optimizer.step()
     named = list(state.model.named_parameters())
     ema_step([state.ema[n] for n, _ in named], [p for _, p in named],
              ema_decay)
     state.step += 1
-    return loss.detach()
+    return mesh.all_reduce_sum(loss.detach())
+
+
+def local_rows(*tensors):
+    """This rank's rows of each global-batch tensor (all of them without a
+    process group)."""
+    start, size = mesh.process_batch_slice(tensors[0].shape[0])
+    return [a[start:start + size] for a in tensors]
 
 
 def _uniform_t(x1, generator):
@@ -134,9 +164,11 @@ def make_fm_train_step(*, coupling: str = "ot", ema_decay: float = 0.999,
     """The step ``(state, x1, generator, x0=None, t=None) -> loss`` with the
     coupling computed inside it (``indep``, or ``ot`` by ``ot_method``).
     ``x0`` ~ N(0, I) and ``t`` ~ U[0, 1) come from ``generator`` (on x1's
-    device) unless given."""
+    device) unless given.  ``x1`` is the global batch: under a process
+    group every rank couples all of it and trains on its rows."""
 
     def train_step(state, x1, generator, x0=None, t=None):
+        batch = x1.shape[0]
         if x0 is None:
             x0 = torch.randn(x1.shape, generator=generator, dtype=x1.dtype,
                              device=x1.device)
@@ -145,7 +177,8 @@ def make_fm_train_step(*, coupling: str = "ot", ema_decay: float = 0.999,
         if coupling == "ot":
             i0, i1 = ot_pair_indices(x0, x1, generator, method=ot_method)
             x0, x1 = x0[i0], x1[i1]
-        loss = make_fm_loss(state.model, remat)(x0, x1, t)
+        x0, x1, t = local_rows(x0, x1, t)
+        loss = make_fm_loss(state.model, remat)(x0, x1, t, batch)
         return apply_updates(state, loss, ema_decay)
 
     return train_step
@@ -154,13 +187,16 @@ def make_fm_train_step(*, coupling: str = "ot", ema_decay: float = 0.999,
 def make_fm_train_step_precoupled(*, ema_decay: float = 0.999,
                                   remat: bool = False):
     """The step ``(state, x0, x1, generator=None, t=None) -> loss`` for
-    already-coupled pairs (the host-side exact OT pairing); ``t`` ~ U[0, 1)
-    comes from ``generator`` unless given."""
+    already-coupled pairs (the host-side exact OT pairing) of the global
+    batch; ``t`` ~ U[0, 1) comes from ``generator`` unless given.  Under a
+    process group each rank trains on its rows."""
 
     def train_step(state, x0, x1, generator=None, t=None):
+        batch = x1.shape[0]
         if t is None:
             t = _uniform_t(x1, generator)
-        loss = make_fm_loss(state.model, remat)(x0, x1, t)
+        x0, x1, t = local_rows(x0, x1, t)
+        loss = make_fm_loss(state.model, remat)(x0, x1, t, batch)
         return apply_updates(state, loss, ema_decay)
 
     return train_step
@@ -257,15 +293,16 @@ class _StepClock:
 
 class FlowMatchingTrainer:
     """The reference-compatible trainer (train_flow_matching.py:40-249) on
-    one device (``args.device``, default ``cuda``)."""
+    ``args.device`` (default ``cuda``), one card per rank under a process
+    group (see the module's notes)."""
 
     def __init__(self, args, model=None, device=None):
-        if getattr(args, "ckpt_backend", "msgpack") != "msgpack":
-            raise NotImplementedError(
-                "ckpt_backend {!r} is not ported (ROADMAP queue 1, item 7): "
-                "use msgpack".format(args.ckpt_backend))
+        backend = getattr(args, "ckpt_backend", "msgpack")
+        if backend not in ("msgpack", "orbax"):
+            raise ValueError(f"unknown ckpt_backend {backend!r}: msgpack or "
+                             "orbax")
         self.args = args
-        self.device = resolve_device(
+        self.device = mesh.rank_device(
             getattr(args, "device", None) if device is None else device)
         self.model = (model if model is not None
                       else define_model(args, train=True)).to(self.device)
@@ -284,6 +321,9 @@ class FlowMatchingTrainer:
         self.model_dir = os.path.join(args.output_root, "model",
                                       args.dataset, args.model)
         os.makedirs(self.model_dir, exist_ok=True)
+        self.checkpointer = (
+            OrbaxCheckpointer(os.path.join(self.model_dir, "orbax"))
+            if backend == "orbax" else FileCheckpointer(self._state_path()))
         self.ot_method = getattr(args, "ot_method", "exact") or "exact"
         self.precoupled = self.coupling == "ot" and self.ot_method == "exact"
         remat = bool(getattr(args, "remat", False))
@@ -309,19 +349,24 @@ class FlowMatchingTrainer:
 
     def save_preemption(self, state, epochs_done: int = 0):
         """The resume point, in the JAX trainer's layout (``params``,
-        ``opt_state``, ``ema``, ``step``, ``epochs_done``), atomically
-        replaced and tagged with the number of completed epochs."""
-        write_msgpack({
+        ``opt_state``, ``ema``, ``step``, ``epochs_done``), tagged with the
+        number of completed epochs and handed to the checkpointer.  Rank 0
+        alone writes."""
+        if not mesh.is_writer():
+            return
+        self.checkpointer.save({
             "params": flax_from_state_dict(
                 dict(state.model.named_parameters())),
             "opt_state": flax_adam_state(state.optimizer, self.names),
             "ema": flax_from_state_dict(state.ema),
-            "step": np.array(state.step, np.int32),
-            "epochs_done": np.int32(epochs_done)}, self._state_path())
+            "step": np.array(state.step, np.int32)}, epochs_done)
 
     def save_state(self, state, epoch=None, epochs_done: int = 0):
         """The resume point, then ``model_{epoch}`` / ``ema_model_{epoch}``
-        (``_final`` without an epoch) with the architecture fingerprint."""
+        (``_final`` without an epoch) with the architecture fingerprint.
+        Rank 0 alone writes."""
+        if not mesh.is_writer():
+            return
         self.save_preemption(state, epochs_done)
         name = ("model_final.msgpack" if epoch is None
                 else f"model_{epoch}.msgpack")
@@ -333,15 +378,14 @@ class FlowMatchingTrainer:
                              fingerprint=fp)
 
     def restore_state(self, state):
-        """-> (state, epochs_done, resumed).  A resume file that cannot be
-        read or does not fit the model is ignored with a warning, and the
-        state is left as it was."""
-        path = self._state_path()
-        if not os.path.exists(path):
-            return state, 0, False
+        """-> (state, epochs_done, resumed), from the checkpointer's newest
+        resume state.  One that cannot be read or does not fit the model is
+        ignored with a warning, and the state is left as it was."""
         try:
-            tree, fp = read_msgpack(path)
-            if fp is not None or set(tree) != STATE_KEYS:
+            tree, epochs_done, resumed = self.checkpointer.restore_latest()
+            if not resumed:
+                return state, 0, False
+            if set(tree) != STATE_KEYS:
                 raise ValueError(f"keys {sorted(tree)}")
             params = checked_state_dict(
                 self.model, state_dict_from_flax(tree["params"]))
@@ -349,10 +393,10 @@ class FlowMatchingTrainer:
                                      state_dict_from_flax(tree["ema"]))
             opt = adam_state_dict_from_flax(tree["opt_state"],
                                             state.optimizer, self.names)
-            step, epochs_done = int(tree["step"]), int(tree["epochs_done"])
+            step = int(tree["step"])
         except (KeyError, ValueError, TypeError) as exc:
-            warnings.warn(f"Ignoring incompatible resume state at {path} "
-                          f"({exc})")
+            warnings.warn(f"Ignoring incompatible resume state at "
+                          f"{self.checkpointer.path} ({exc})")
             return state, 0, False
         state.model.load_state_dict(params)
         state.optimizer.load_state_dict(opt)
@@ -375,13 +419,17 @@ class FlowMatchingTrainer:
             print(f"Resumed from step {state.step} (epoch {start_epoch})")
             if start_epoch >= self.num_epoch:
                 print(f"Training already complete ({start_epoch} epochs); "
-                      f"delete {self._state_path()} to retrain from scratch.")
+                      f"delete {self.checkpointer.path} to retrain from "
+                      f"scratch.")
                 return state
 
+        writer = mesh.is_writer()
         loss_file = os.path.join(self.model_dir, "loss_training.txt")
         n_params = sum(p.numel() for p in state.model.parameters())
-        with open(os.path.join(self.model_dir, "model_info.txt"), "w") as f:
-            f.write(f"num_params {n_params}\n")
+        if writer:
+            with open(os.path.join(self.model_dir, "model_info.txt"),
+                      "w") as f:
+                f.write(f"num_params {n_params}\n")
 
         gen = torch.Generator(device=dev).manual_seed(seed + start_epoch)
         host_rng = np.random.default_rng(seed + start_epoch)
@@ -415,8 +463,9 @@ class FlowMatchingTrainer:
             losses = torch.stack(losses).tolist() if losses else []
             self.stats["step_seconds"] += clock.seconds()
             self.stats["losses"] += losses
-            with open(loss_file, "a") as f:
-                f.writelines(f"{v}\n" for v in losses)
+            if writer:
+                with open(loss_file, "a") as f:
+                    f.writelines(f"{v}\n" for v in losses)
             epoch_s = time.perf_counter() - t_ep
             print("epoch {} loss {:.4f} ({:.2f}s)".format(
                 epoch, float(np.mean(losses)) if losses else float("nan"),
@@ -439,9 +488,13 @@ class FlowMatchingTrainer:
                 self.save_preemption(state, epochs_done=epoch + 1)
             if epoch % self.save_every == 0:
                 self.save_state(state, epoch, epochs_done=epoch + 1)
-                self._save_sample_plot(state, epoch)
-                self._fid_checkpoint(state, epoch, data_loaders)
+                if writer:
+                    self._save_sample_plot(state, epoch)
+                    self._fid_checkpoint(state, epoch, data_loaders)
         self.save_state(state, epochs_done=self.num_epoch)
+        self.checkpointer.wait_until_finished()
+        # the other ranks return once rank 0 has written the final files
+        mesh.barrier()
         if dev.type == "cuda":
             self.stats["max_memory_allocated"] = \
                 torch.cuda.max_memory_allocated(dev)

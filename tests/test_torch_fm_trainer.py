@@ -273,8 +273,10 @@ def test_refusals(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="forward-only"):
         fm.FlowMatchingTrainer(CfgNode(_args(tmp_path, dim_image=8,
                                              fused_norm="conv")))
-    with pytest.raises(NotImplementedError, match="orbax"):
-        _trainer(tmp_path, ckpt_backend="orbax")
+    # ckpt_backend orbax is ported (tests/test_torch_checkpoint.py); an
+    # unknown backend is refused
+    with pytest.raises(ValueError, match="msgpack or orbax"):
+        _trainer(tmp_path, ckpt_backend="tensorstore")
     # compute_metrics (the FID-5k curve) and the dopri5 sampler are
     # ported (tests/test_torch_fid_curve.py, tests/test_torch_ode.py); an
     # unknown sampler is refused
@@ -293,9 +295,11 @@ def test_refusals(tmp_path, monkeypatch):
         conv.train_step(state, x, x, torch.Generator())
     assert state.step == 0 and not state.optimizer.state
     out = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="grain"):
+    # data_backend grain is ported (tests/test_torch_grain.py); an unknown
+    # backend is refused
+    with pytest.raises(ValueError, match="thread or grain"):
         main(["--opts", "dataset", "synthetic", "train", "True",
-              "data_backend", "grain", "eval", "False", "device", "cpu",
+              "data_backend", "threads", "eval", "False", "device", "cpu",
               "output_root", out])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -870,3 +870,201 @@ def test_rf_likelihood_jvp_through_the_fir_kernel(cuda):
     assert nw == 0 and ng > 0
     assert float((dg - dw).abs().max()) <= 1e-4 * float(dw.abs().max())
     assert float((bg - bw).abs().max()) <= 1e-4 * float(bw.abs().max())
+
+
+# ------------------------------------------------------ data parallelism
+def _dp_steps(cuda, sd, x0, x1, t, u, root):
+    """One precoupled flow-matching step and one gradient-step denoiser
+    step with ``fused_norm`` True on the card from ``sd``; their losses and
+    parameters."""
+    from pnpflow_tpu_torch.training import denoiser as td
+    from pnpflow_tpu_torch.utils.config import CfgNode
+
+    out = {}
+    m = VelocityUNet(**SMALL_32, fused_norm=True)
+    m.load_state_dict(sd)
+    st = fm.new_state(m.to(cuda), 1e-4)
+    out["fm"] = fm.make_fm_train_step_precoupled()(
+        st, x0.to(cuda), x1.to(cuda), t=t.to(cuda))
+    out["fm_p"] = {k: v.clone() for k, v in m.state_dict().items()}
+    m = VelocityUNet(**SMALL_32, fused_norm=True)
+    tr = td.GradientStepTrainer(CfgNode({
+        "dataset": "synthetic", "model": "gradient_step", "dim_image": 32,
+        "num_channels": 3, "lr": 1e-4, "num_epoch": 1, "seed": 0,
+        "output_root": str(root), "batch_size_train": 4,
+        "device": str(cuda)}), model=m)
+    gs = tr.init_state()
+    m.load_state_dict(sd)
+    out["gs"], _ = tr.train_step(gs, x1.to(cuda), 0.13, u=u.to(cuda))
+    out["gs_p"] = {k: v.clone() for k, v in m.state_dict().items()}
+    return out
+
+
+def test_world_size_one_nccl_step_equals_the_plain_step(cuda, monkeypatch,
+                                                        tmp_path):
+    """Both trainers' steps under an NCCL process group of one rank equal
+    the steps without it, bit for bit: the all-reduce of one rank's
+    gradients and loss is the identity."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pnpflow_tpu_torch.parallel import mesh
+
+    sd = _randomized(VelocityUNet(**SMALL_32), 4).state_dict()
+    x0, x1, t = _pairs(4, 32, 3)
+    u = torch.randn(x1.shape, generator=torch.Generator().manual_seed(9))
+    # cuDNN's default backward algorithms may add in a run-dependent order
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    plain = _dp_steps(cuda, sd, x0, x1, t, u, tmp_path)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    assert mesh.init_distributed(cuda) and dist.get_backend() == "nccl"
+    try:
+        dp = _dp_steps(cuda, sd, x0, x1, t, u, tmp_path)
+    finally:
+        dist.destroy_process_group()
+    for k in ("fm", "gs"):
+        assert torch.equal(dp[k], plain[k]), k
+        for n, v in plain[k + "_p"].items():
+            assert torch.equal(dp[k + "_p"][n], v), (k, n)
+
+
+def test_trainers_and_prefetch_take_the_ranks_card(monkeypatch, tmp_path):
+    """Under a process group, a bare ``cuda`` is the card ``LOCAL_RANK``
+    names (the last visible one here): both trainers hold it with its
+    index, and the batches their prefetch thread makes lie on it, made
+    while it is the thread's current card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pnpflow_tpu_torch.data.prefetch import prefetch
+    from pnpflow_tpu_torch.parallel import mesh
+    from pnpflow_tpu_torch.training import denoiser as td
+    from pnpflow_tpu_torch.utils.config import CfgNode
+
+    card = torch.cuda.device_count() - 1
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", LOCAL_RANK=str(card), WORLD_SIZE="1",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    before = torch.cuda.current_device()
+    assert mesh.init_distributed("cuda")
+    try:
+        args = dict(dataset="synthetic", dim_image=32, num_channels=3,
+                    lr=1e-4, num_epoch=1, seed=0, batch_size_train=4,
+                    output_root=str(tmp_path), device="cuda")
+        gs = td.GradientStepTrainer(CfgNode(dict(args, model="gradient_step")),
+                                    model=VelocityUNet(**SMALL_32))
+        ot = fm.FlowMatchingTrainer(CfgNode(dict(args, model="indep")),
+                                    model=VelocityUNet(**SMALL_32))
+        want = torch.device("cuda", card)
+        assert gs.device == ot.device == want
+        made_on = []
+
+        def batches():
+            for i in range(3):
+                made_on.append(torch.cuda.current_device())
+                yield np.full((4, 32, 32, 3), i, np.float32), None
+
+        got = [x for x, _ in prefetch(batches(), device=gs.device)]
+        assert made_on == [card] * 3
+        assert all(x.device == want for x in got)
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.set_device(before)
+
+
+def cli_train_losses(out, opts, nproc=None, device="cuda",
+                     timeout=600) -> list:
+    """The losses that ``train True`` logs through the CLI in
+    ``loss_training.txt``: one process, or ``nproc`` under ``torchrun``
+    (one rank per card, gloo on the CPU).  A failing run raises with its
+    output."""
+    import glob
+    import os
+    import subprocess
+    import sys
+
+    launch = ([] if nproc is None else
+              ["-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(nproc)])
+    cmd = [sys.executable, *launch, "-m", "pnpflow_tpu_torch", "--opts",
+           *opts, "train", "True", "eval", "False", "seed", "0",
+           "output_root", str(out), "device", device]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                       timeout=timeout)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+    (path,) = glob.glob(os.path.join(str(out), "**", "loss_training.txt"),
+                        recursive=True)
+    with open(path) as f:
+        return [float(line.rsplit(maxsplit=1)[-1]) for line in f]
+
+
+# a global batch of 16 over every card: exact OT on the host, Sinkhorn and
+# independent coupling on the card, and the gradient-step denoiser (one
+# epoch of the synthetic train split)
+DP_RUNS = {
+    "fm_exact": ["model", "ot", "max_iters_per_epoch", "3"],
+    "fm_sinkhorn": ["model", "ot", "ot_method", "sinkhorn",
+                    "max_iters_per_epoch", "3"],
+    "fm_indep": ["model", "indep", "max_iters_per_epoch", "3"],
+    "gs": ["model", "gradient_step"],
+}
+
+
+@pytest.mark.parametrize("run", list(DP_RUNS))
+def test_data_parallel_training_on_every_card_equals_one_card(run,
+                                                              tmp_path):
+    """``torchrun --nproc_per_node <cards>`` trains through the CLI (the
+    flagship U-Net at 32^2, a global batch of 16) to the losses that one
+    process on one card logs: the first step's within 1e-5 relative (the
+    ranks' sums add in another order), the later ones within 1e-3 (Adam's
+    first step moves the weights whose gradient lies near zero by up to
+    two learning rates either way).  Needs two cards or more."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip("needs two CUDA devices or more")
+    opts = ["dataset", "synthetic", "dim_image", "32", "num_epoch", "1",
+            "batch_size_train", "16", *DP_RUNS[run]]
+    want = cli_train_losses(tmp_path / "one", opts)
+    got = cli_train_losses(tmp_path / "all", opts, nproc=n)
+    assert len(got) == len(want) > 1
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    assert rel[0] <= 1e-5 and max(rel) <= 1e-3, rel
+
+
+def test_sharded_restorer_equals_unsharded_on_the_card(tmp_path):
+    """``Restorer(shard=True, n_devices=1)`` against ``shard=False`` on the
+    same request (pnp_flow, the U-Net "conv" path at 64^2), bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import warnings
+
+    from pnpflow_tpu_torch.serve import Restorer
+
+    kw = dict(problem="gaussian_deblurring_FFT", dim_image=64, batch_size=4,
+              overrides={"steps_pnp": 5, "num_samples": 2},
+              output_root=str(tmp_path))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        plain = Restorer(**kw)
+        sharded = Restorer(**kw, shard=True, n_devices=1)
+    clean = torch.rand((4, 64, 64, 3), generator=torch.Generator()
+                       .manual_seed(1)) * 2 - 1
+    y = plain.degrade(clean, seed=2)
+    before = conv3x3_gn.launches
+    got = sharded.restore(y.cpu(), seed=3)
+    assert conv3x3_gn.launches > before
+    assert (got == plain.restore(y, seed=3)).all()

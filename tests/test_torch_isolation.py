@@ -1,5 +1,7 @@
-"""The port stands alone: no import of JAX, flax or the JAX package; no
-quiet fall back to the CPU; its own config reader agrees with PyYAML."""
+"""The port stands alone: no import of JAX, flax, grain, orbax or the JAX
+package (data parallelism, the data and checkpoint backends and the demos
+included); no quiet fall back to the CPU; its own config reader agrees with
+PyYAML."""
 
 import ast
 import glob
@@ -19,7 +21,7 @@ from pnpflow_tpu_torch.main import main
 from pnpflow_tpu_torch.serve import Restorer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "pnpflow_tpu")
+FORBIDDEN = ("jax", "flax", "grain", "orbax", "pnpflow_tpu")
 
 
 def _imports(path):
@@ -76,6 +78,24 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_lpips_fn(args)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_parallel_and_demos_stand_alone_and_refuse_the_cpu(monkeypatch):
+    from pnpflow_tpu_torch.demos import demo, dirichlet, toy_example
+    from pnpflow_tpu_torch.parallel import mesh
+
+    rel = {os.path.relpath(f, REPO) for f in _port_files()}
+    for f in ("parallel/__init__.py", "parallel/mesh.py",
+              "demos/toy_example.py", "demos/demo.py", "demos/dirichlet.py",
+              "data/grain_loader.py", "training/checkpoint.py",
+              "utils/profile_report.py"):
+        assert "pnpflow_tpu_torch/" + f in rel, f
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.devices()
+    for mod in (toy_example, demo, dirichlet):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.main([])
 
 
 @pytest.mark.parametrize("path", sorted(glob.glob(

@@ -83,3 +83,42 @@ def test_prefetch_wraps_a_dict_of_loaders():
     assert loaders["val"] is None
     assert isinstance(loaders["train"], PrefetchIterator)
     assert len(list(loaders["train"])) == 2
+
+
+def test_the_producer_makes_the_batch_card_current(monkeypatch):
+    """A new thread starts on card 0: the producer enters the card the
+    batches go to before it makes them, and a bare ``cuda`` is the
+    consumer's current card (card 1 here; the CUDA calls are stood in
+    for, so this runs without a card)."""
+    import contextlib
+
+    from pnpflow_tpu_torch.data import prefetch as pf
+
+    current = threading.local()
+
+    @contextlib.contextmanager
+    def device(d):
+        before = getattr(current, "card", None)
+        current.card = torch.device(d)
+        try:
+            yield
+        finally:
+            current.card = before
+
+    seen = []
+
+    def made_on(n):
+        for i in range(n):
+            seen.append(getattr(current, "card", None))
+            yield np.full((2, 3), i, np.float32), None
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    monkeypatch.setattr(pf, "to_device",
+                        lambda x, d: (torch.from_numpy(x), d))
+    for asked in ("cuda", "cuda:1"):
+        seen.clear()
+        out = list(PrefetchIterator(made_on(3), device=asked))
+        card = torch.device("cuda", 1)
+        assert seen == [card] * 3, asked
+        assert [x[1] for x, _ in out] == [card] * 3, asked

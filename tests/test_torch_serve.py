@@ -1,7 +1,7 @@
 """The port's serving API (``pnpflow_tpu_torch/serve.py``).
 
 ``restore`` is the solver's ``solve_batch`` on the same input and seed,
-bit for bit; ``degrade`` is seeded; there is one card, so sharding raises;
+bit for bit; ``degrade`` is seeded; what sharding refuses;
 a ``Restorer`` writes nothing under its output root.
 """
 
@@ -70,10 +70,18 @@ def test_degrade_is_seeded(noise, tmp_path):
 
 
 def test_sharding_raises():
-    with pytest.raises(NotImplementedError, match="one"):
-        Restorer(device="cpu", shard=True)
-    with pytest.raises(NotImplementedError, match="one"):
+    """Sharding is ported (``tests/test_torch_parallel.py``); what it
+    refuses: more devices than are visible, a device count without
+    ``shard=True``, and a restoration that couples the batch's images."""
+    with pytest.raises(ValueError, match="n_devices 2: 1 cpu"):
+        Restorer(device="cpu", shard=True, n_devices=2, dim_image=16,
+                 problem="denoising", batch_size=2)
+    with pytest.raises(ValueError, match="need shard=True"):
         Restorer(device="cpu", n_devices=2)
+    with pytest.raises(ValueError, match="LBFGS"):
+        Restorer(device="cpu", method="d_flow", problem="denoising",
+                 dim_image=16, batch_size=2, shard=True,
+                 devices=["cpu", "cpu"])
 
 
 def test_pnp_gs_request_does_not_depend_on_earlier_ones(tmp_path):

@@ -206,8 +206,84 @@ def block_grad(m):
 
 @pytest.mark.parametrize("mode", ["dot", "bf16stats", "tview"])
 def test_unported_norm_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VelocityUNet(**SMALL, fused_norm=mode)
+    """The XLA-only variants are ported now: each builds, and what is not
+    a variant still raises."""
+    assert VelocityUNet(**SMALL, fused_norm=mode).fused_norm == mode
+    with pytest.raises(ValueError, match="unknown fused_norm"):
+        VelocityUNet(**SMALL, fused_norm=mode.upper())
+
+
+PLAIN_NORMS = {"dot": "DotStatsGroupNorm", "tview": "TViewStatsGroupNorm",
+               "bf16stats": "LowPrecStatsGroupNorm"}
+
+
+def _bf16_ulp(a):
+    """One bfloat16 ulp at max|a| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.abs(a).max())) - 7)
+
+
+@pytest.mark.parametrize("swish", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", list(PLAIN_NORMS))
+def test_plain_norm_variants_match_jax(mode, dtype, swish):
+    """Each variant against JAX's module, forward and the gradients of
+    <y, c> to x, scale and bias.  float32 within 1e-5 of each max.  In
+    bfloat16 "dot" and "tview" (float32 statistics) within one bfloat16
+    ulp of max|y| (float32 rounds in another order before the cast), their
+    float32 scale and bias gradients within 1e-5; "bf16stats"
+    within 4 bfloat16 ulps of max|y| forward and 8 of each gradient's max:
+    JAX accumulates its bfloat16 sums in bfloat16, torch wider."""
+    from pnpflow_tpu.models import unet as jaxunet
+    from pnpflow_tpu_torch.models import unet as tunet
+
+    rng = np.random.default_rng(4)
+    x = (1.5 * rng.normal(size=(2, 8, 8, 64)) + 0.3).astype(np.float32)
+    scale = (1 + 0.2 * rng.normal(size=64)).astype(np.float32)
+    bias = (0.1 * rng.normal(size=64)).astype(np.float32)
+    ct = rng.normal(size=x.shape).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jm = getattr(jaxunet, PLAIN_NORMS[mode])(use_swish=swish)
+    p = {"params": {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}}
+
+    def f(xx, pp):
+        y = jm.apply(pp, xx).astype(jnp.float32)
+        return jnp.sum(y * ct), y
+
+    (_, want), (gx, gp) = jax.value_and_grad(f, argnums=(0, 1),
+                                             has_aux=True)(
+        jnp.asarray(x, jdt), p)
+    want = [np.asarray(want), np.asarray(gx, np.float32),
+            np.asarray(gp["params"]["scale"]),
+            np.asarray(gp["params"]["bias"])]
+    xt = torch.tensor(x, dtype=tdt, requires_grad=True)
+    w = torch.tensor(scale, requires_grad=True)
+    b = torch.tensor(bias, requires_grad=True)
+    y = tunet._PLAIN_NORMS[mode](xt, w, b, swish)
+    assert y.dtype == tdt
+    (y.float() * torch.from_numpy(ct)).sum().backward()
+    got = [y.detach().float().numpy(), xt.grad.float().numpy(),
+           w.grad.numpy(), b.grad.numpy()]
+    for i, (g, wnt) in enumerate(zip(got, want)):
+        err = np.abs(g - wnt).max()
+        if dtype == "float32":
+            assert err <= 1e-5 * np.abs(wnt).max(), (i, err)
+        elif mode == "bf16stats":
+            assert err <= (4 if i == 0 else 8) * _bf16_ulp(wnt), (i, err)
+        elif i < 2:
+            assert err <= _bf16_ulp(wnt), (i, err)
+        else:   # scale and bias sum float32 products over the batch
+            assert err <= 1e-5 * np.abs(wnt).max(), (i, err)
+
+
+@pytest.mark.parametrize("mode", list(PLAIN_NORMS))
+def test_plain_norm_variant_unets_match_jax(mode):
+    """The small U-Net with each variant in every GroupNorm (the attention
+    norms too, as in JAX), float32, within the plain GroupNorm's 5e-5."""
+    params, x, t, want = _jax_forward("small", SMALL, 2, mode)
+    with torch.no_grad():
+        got = _port(SMALL, params, mode)(torch.from_numpy(x),
+                                         torch.from_numpy(t)).numpy()
+    np.testing.assert_allclose(got, want, rtol=5e-5, atol=5e-5)
 
 
 def test_registry_resolves_pt_then_refuses_msgpack(tmp_path):
