@@ -14,8 +14,13 @@ failure (nothing is caught and passed over) and prints its seconds:
    mult 1,1,2,2,2,2,2, 2 blocks, attention at 16);
 4. kernel parity: each kernel against its plain PyTorch version at every
    site of the main paths, in float32 and bf16: the conv kernel at the
-   64x64 and 128x128 U-Nets' sites at the main-path batch of 20 images
-   (the restoration halves), plus every epilogue combination; both
+   64x64 U-Net's sites at the main-path batch of 20 images and the bench
+   batch of 320 (where the 8x8 sites take tiles of two samples), the
+   128x128 U-Net's at 20 (the restoration halves), every epilogue
+   combination with and without moments, a batch the two-sample tiles do
+   not divide and a ragged image, and the SASS of every conv kernel
+   function the script launched must hold HGMMA (and the counts of HGMMA
+   and of TMA loads, UTMALDG, go on the ``kernels`` line); both
    GroupNorm entries at the 64x64 sites at 20 images and the 128x128 ones
    at 4 (where float32 samples of 64 and 96 channels fit no cluster and
    take the two-phase path), and groupnorm_swish in float32, forward and
@@ -46,41 +51,42 @@ failure (nothing is caught and passed over) and prints its seconds:
    at 4, at 64x64 and 256x256, the card against the CPU;
 6. main path: the port's CLI, pnp_flow on synthetic images -- the U-Net at
    64x64 (FFT deblur; "conv" fp32 at 100 steps, "conv" bf16, True and "bm"
-   at 10) and the rectified NCSN++ at 256x256 (FFT deblur fp32 at 10 steps,
-   cut from 100 to keep the script within its time, bf16 at 10,
-   super-resolution at 10) -- then ``train True eval True``:
+   at 10) and the rectified NCSN++ at 256x256 (FFT deblur fp32 at 3 steps,
+   cut from 100 to keep the script within half its time limit, bf16 at 10,
+   super-resolution at 3) -- then ``train True eval True``:
    the flagship ``ot`` U-Net trained at 128x128, batch 128, exact OT, fp32,
-   for 6 steps, and restored from the checkpoint it wrote (FFT deblur, 10
+   for 4 steps, and restored from the checkpoint it wrote (FFT deblur, 10
    steps); then the differentiated methods, fp32, FFT deblur, 4 images:
-   the U-Net at 64x64 with ot_ode at its default (80 VJP steps),
-   flow_priors at N 50 (cut from the default 100 to make room for the
-   metric phases; K 1), d_flow with max_iter cut from 20 to 1 and its LBFGS
-   iterations from 20 to 10 (the default takes about 40 times as long)
+   the U-Net at 64x64 with ot_ode at 25 steps (20 VJP steps, cut from the
+   default 100), flow_priors at N 5 (cut from the default 100; K 1),
+   d_flow with max_iter cut from 20 to 1 and its LBFGS iterations from 20
+   to 2 (these cuts keep the script within half its time limit)
    and ot_ode on bicubic super-resolution (GMRES, 10 steps), and the
-   NCSN++ 256^2 with ot_ode at 5 steps (4 VJPs) and flow_priors at N 2;
+   NCSN++ 256^2 with ot_ode at 5 steps (4 VJPs) and flow_priors at N 1;
    then pnp_gs with ``model gradient_step`` (the flagship at 64x64, 4
-   images): pgd and hqs FFT deblurring and hqs random inpainting at the
-   default 30 iterations, hqs bicubic SR at 10, and pgd at 10, whose peak
-   memory must equal the 30-iteration run's; ``train True eval True`` with
-   ``model gradient_step`` at 128x128 for 2 epochs of the 256-image
+   images): pgd and hqs FFT deblurring and hqs random inpainting at 15
+   iterations (cut from the default 30), hqs bicubic SR at 10, and pgd at
+   10, whose peak memory must equal the 15-iteration run's; ``train True
+   eval True`` with ``model gradient_step`` at 128x128 for 1 epoch of the
+   256-image
    synthetic split at batch 32 (cut from the config's 128: a GS step keeps
    about 2 GB an image at 128x128, so 32 is the largest power of two that
    fits the card's 80 GB), then 10 pgd iterations from the checkpoint it
    wrote; pnp_diff with ``model diffusion`` (the full-width
-   DiffUNet at 256x256, 4 images): FFT deblurring at 25 steps (cut from
-   the default 100 to make room for the rf_zoo and parallel phases)
-   and laplace-noise inpainting (the L1 dual prox) at 10; every CLI run
+   DiffUNet at 256x256, 4 images): FFT deblurring at 10 steps (cut from
+   the default 100 to keep the script within half its time limit)
+   and laplace-noise inpainting (the L1 dual prox) at 5; every CLI run
    with ``lpips_alex.npz`` in place, so it reports LPIPS; then the metric
-   stack: ``compute_metrics True`` with the flagship at 64x64 (1000 samples,
+   stack: ``compute_metrics True`` with the flagship at 64x64 (100 samples,
    cut from the protocol's 5000, by Euler in 10 steps, on the Inception
    features, then 10 PnP steps) and one dopri5 chunk of 50 samples; the FM
-   trainer's FID curve on the checkpoint the training run wrote (n 1000,
+   trainer's FID curve on the checkpoint the training run wrote (n 100,
    twice, one train step apart), each compute_metrics line held against
    the same statistics recomputed on the CPU from the features it cached;
    ``remat`` False and True on each method that differentiates the model
    (U-Net 64x64 ot_ode, d_flow and pnp_gs, NCSN++ 256^2 flow_priors at
-   N 2: equal results, both peaks); and the serving
-   API (``Restorer``, pnp_flow at 64x64, 4 images, 100 steps: warmup and
+   N 1: equal results, both peaks); and the serving
+   API (``Restorer``, pnp_flow at 64x64, 4 images, 10 steps: warmup and
    two seeded restores, bit for bit);
    every launch counter set to 0 before each run and read after;
 6c. rf_zoo: the rectified-flow entry point (``pnpflow_tpu_torch/rf_main.py``) on
@@ -88,19 +94,20 @@ failure (nothing is caught and passed over) and prints its seconds:
    attention at 16, FIR [1,3,3,1]): one train step at batch 1, card against
    CPU on the same real-scale weights, z0 and t (loss rel 1e-5, gradients
    1e-4 of each max); ``--mode train`` at batch 12 (cut from 64; the
-   largest of 8 or 12 that fits) for 5 steps on synthetic data from the
-   seeded init, ``sample`` (rk45, ode_tol 1e-5, 4 samples) from the state it
-   wrote, ``reflow`` with train_reflow and train_online_reflow (2
-   iterations each at batch 4, sample_N cut to 10; online generates in 20
-   Euler steps), ``generate_pairs`` (8) and bits/dim (4 images, 10 midpoint
+   largest of 8 or 12 that fits) for 2 steps on synthetic data from the
+   seeded init, ``sample`` (rk45, ode_tol 1e-5, 2 samples) from the state it
+   wrote, ``reflow`` with train_reflow and train_online_reflow (1
+   iteration each at batch 4, sample_N cut to 10; online generates in 20
+   Euler steps), ``generate_pairs`` (8) and bits/dim (4 images, 2 midpoint
    steps, 1 probe, each a JVP: the FIR kernel on the tangent), every FIR
    launch counted by role; then cifar10_rf_gaussian_ddpmpp (no FIR) trained
-   3 steps at its batch of 128 and its loss and gradients there, score_sde's
+   3 steps at its batch of 128 and its loss and gradients at 32 images,
+   card against CPU, score_sde's
    cifar10 DDPM and ncsnv2's CelebA NCSNv2 64^2 forwards, card against CPU
    within 1e-4;
 6d. parallel (this slice: data parallelism, the backends, the profiler and
    the demos): the FM trainer step (the 128^2 flagship, fused_norm True,
-   batch 128, precoupled exact OT) and the GS trainer step (batch 32), 3
+   batch 128, precoupled exact OT) and the GS trainer step (batch 32), 2
    steps each without a process group and under ``init_distributed`` at
    world size 1 over NCCL, equal bit for bit (cuDNN deterministic);
    ``Restorer(shard=True, n_devices=1)`` against ``shard=False`` (bit for
@@ -163,9 +170,9 @@ RECT_FIR_NARROW = 12    # of which C = 3 (the image pyramids)
 RECT_FIR_TRAIN_ADJOINT = 30  # adjoint launches of a backward to the weights
 # only: the input pyramid's 6 downsamples have nothing to differentiate
 CLI_STEPS = 100         # main-path PnP steps: the CLI default
-RECT_CLI_STEPS = 10     # the rectified fp32 run, cut from 100 (about 140 s
-                        # on an H100), to 20 for the rf_zoo phase and to 10
-                        # for the parallel phase (about 1.4 s a step)
+RECT_CLI_STEPS = 3      # the rectified fp32 runs (deblur and SR), cut from
+                        # 100 (about 2 s a step on an H100) to keep the
+                        # script within half its time limit
 MAIN_BATCH = 4 * 5      # batch_size_ip x num_samples: images per forward
 BENCH_BATCH = 64 * 5    # the bench protocol: 64 images x 5 MC samples
 NCSNPP_REL_TOL = 1e-4   # NCSN++ card vs CPU, relative to max|out|, fp32
@@ -176,7 +183,7 @@ TWO_PHASE_SITES = [(128, c, True) for c in (32, 64, 96)]
 FORWARD_REPS = 5        # model forwards are the median of this many
 TRAIN_DIM = 128         # CelebA's geometry (config/dataset_config/celeba.yaml)
 TRAIN_BATCH = 128       # batch_size_train (config/main_config.yaml)
-TRAIN_EPOCHS = 3        # x 2 steps: the synthetic train split is 256 images
+TRAIN_EPOCHS = 2        # x 2 steps: the synthetic train split is 256 images
 TRAIN_STEPS_PER_EPOCH = 2
 TRAIN_PARITY_CHUNK = 32  # images per plain-GroupNorm slice in training parity
 CONV_SITES = 109        # conv3x3_gn launches per flagship forward
@@ -184,53 +191,56 @@ PLOT_FORWARDS = 10      # the Euler sample plot at epoch 0, with matplotlib
 NOISE_FLOOR = 1e-6      # of the largest gradient: float32 rounding noise
 GN_SITES_64 = 136       # groupnorm_swish launches per 64x64 flagship forward
 DIFF_BATCH = 4          # batch_size_ip of ot_ode / flow_priors / d_flow
-OT_ODE_STEPS = 100      # steps_ode, the default: from start_time 0.2, 80 steps
-FP_N = 50               # flow_priors N, cut from the default 100 (K 1)
+OT_ODE_STEPS = 25       # steps_ode, cut from the default 100: from
+                        # start_time 0.2, 20 steps
+FP_N = 5                # flow_priors N, cut from the default 100 (K 1)
 D_FLOW_MAX_ITER = 1     # of the default 20 LBFGS steps
-D_FLOW_LBFGS_ITER = 10  # LBFGS iterations a step, cut from the default 20
-# (both cuts keep the script near 10 minutes beside the metric phases)
+D_FLOW_LBFGS_ITER = 2   # LBFGS iterations a step, cut from the default 20
+# (both cuts keep the script within half its time limit)
 BICUBIC_STEPS = 10      # ot_ode steps_ode for bicubic SR (GMRES): 8 steps
 RECT_OT_STEPS = 5       # ot_ode on the NCSN++ 256^2: 4 VJP steps
-RECT_FP_N = 2           # flow_priors on the NCSN++ 256^2: 2 outer steps
+RECT_FP_N = 1           # flow_priors on the NCSN++ 256^2: 1 outer step
 GS_PARITY_BATCH = 4     # images of the GS denoiser parity at 128x128
-GS_ITERS = 30           # pnp_gs max_iter, the default
+GS_ITERS = 15           # pnp_gs max_iter, cut from the default 30
 GS_SR_ITERS = 10        # pnp_gs hqs bicubic SR
 GS_TRAIN_BATCH = 32     # the GS trainer's batch, cut from 128 (memory)
-GS_TRAIN_EPOCHS = 2
+GS_TRAIN_EPOCHS = 1
 GS_EVAL_BATCH = 4       # batch_size_ip of the GS restoration at 128x128
 GS_EVAL_ITERS = 10      # pgd iterations restoring with the trained weights
 SYNTHETIC_TRAIN = 256   # images in the synthetic train split
 DIFF_DIM = 256          # the DiffUNet's geometry (DiffPIR ffhq_10m)
 DIFFUNET_PARITY_BATCH = 2
-PNP_DIFF_STEPS = 25     # pnp_diff max_iter, cut from the default 100 to
-                        # 50 for the rf_zoo phase, to 25 for the parallel
-                        # one (about 1 s a step)
-PNP_DIFF_LAPLACE_STEPS = 10
-METRIC_N = 1000         # compute_metrics and FID-curve samples, cut from
-                        # the protocol's 5000 to keep the script near 15 min
+PNP_DIFF_STEPS = 10     # pnp_diff max_iter, cut from the default 100
+                        # (about 0.35 s a step)
+PNP_DIFF_LAPLACE_STEPS = 5
+METRIC_N = 100          # compute_metrics and FID-curve samples, cut from
+                        # the protocol's 5000 to keep the script within
+                        # half its time limit
 METRIC_STEPS = 10       # Euler steps of the compute_metrics run
 METRIC_BATCH = 50       # the sampling and Inception sub-batch
 INCEPTION_TOL = 1e-4    # pool3 card vs CPU, of max|pool3|; probs 1e-5
 LPIPS_TOL = 1e-5        # LPIPS card vs CPU, relative
 METRIC_DIMS = (64, 256)
-SERVE_STEPS = 100       # steps_pnp of the serving run, the default
-REMAT_OT_STEPS = 10     # remat False / True: ot_ode steps_ode (8 VJPs),
-REMAT_LBFGS_ITER = 2    # d_flow's LBFGS iterations in its one step,
+SERVE_STEPS = 10        # steps_pnp of the serving run, cut from 100
+REMAT_OT_STEPS = 5      # remat False / True: ot_ode steps_ode (4 VJPs),
+REMAT_LBFGS_ITER = 1    # d_flow's LBFGS iterations in its one step,
 REMAT_GS_ITERS = 3      # pnp_gs iterations
 METRIC_REL_TOL = 1e-4   # metrics.txt (card) against the CPU, relative
 # the synthetic Inception and seeded LPIPS weight files, written once
 RF_CONFIG = "celeba_hq_pytorch_rf_gaussian"   # the rf_zoo phase's config
 RF_BATCH = 12           # its training batch, cut from the config's 64
-RF_TRAIN_STEPS = 5
-RF_SAMPLES = 4          # rk45 at the config's ode_tol 1e-5
-RF_REFLOW_ITERS = 2     # each reflow mode,
+RF_TRAIN_STEPS = 2
+RF_SAMPLES = 2          # rk45 at the config's ode_tol 1e-5
+RF_REFLOW_ITERS = 1     # each reflow mode,
 RF_REFLOW_BATCH = 4     # at this training.batch_size
 RF_SAMPLE_N = 10        # sampling.sample_N of reflow and pairs, cut from 1000
 RF_ONLINE_GEN = 20      # online reflow's Euler steps (the JAX default)
 RF_PAIRS = 8            # reflow.total_number_of_samples
 RF_BPD_BATCH = 4        # bits/dim: images, midpoint steps (cut from 100),
-RF_BPD_STEPS = 10       # and one probe
+RF_BPD_STEPS = 2        # and one probe
 CIFAR_BATCH = 128       # cifar10_rf_gaussian_ddpmpp's training.batch_size
+CIFAR_PARITY_BATCH = 32  # its loss and gradients card vs CPU, cut from 128
+                        # (the CPU side is the cost)
 RF_REL_TOL = 1e-4       # the small configs card vs CPU, relative to max
 METRIC_WEIGHTS = {}
 
@@ -333,6 +343,45 @@ def build():
         print(res["log"].strip())
     emit({"build": {"seconds": time.perf_counter() - t0,
                     "built": sorted(logs)}})
+    return conv_sass()
+
+
+def conv_sass():
+    """Per conv3x3_gn kernel function of the built library, by
+    ``fused_conv_gn.tile_key``: its counts of HGMMA (wgmma) and UTMALDG
+    (TMA loads) in ``cuobjdump -sass``."""
+    import re
+
+    from pnpflow_tpu_torch.ops import _build
+    from pnpflow_tpu_torch.ops.fused_conv_gn import WARPGROUPS, tile_key
+
+    import torch
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(_build.library_path(
+        "conv3x3_gn"))], capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    names = {}
+    for (bm, (nwg, mw)) in WARPGROUPS.items():
+        for bn in (32, 64, 128):
+            for dtype, mangled in ((torch.float32, "f"),
+                                   (torch.bfloat16, "13__nv_bfloat16")):
+                names[f"conv3x3_gn_kernelI{mangled}Li{bn}ELi{nwg}ELi{mw}E"
+                      ] = tile_key(dtype, bm, bn)
+    counts, key = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            key = next((k for n, k in names.items() if n in m.group(1)),
+                       None)
+            if key:
+                counts[key] = {"HGMMA": 0, "UTMALDG": 0}
+            continue
+        if key:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[key][op] += op in line
+    check(counts, "no conv3x3_gn kernel function in the SASS")
+    return counts
 
 
 # ---------------------------------------------------------------- 3. sites
@@ -451,7 +500,7 @@ def kernel_parity(torch, dev, gn_sites, conv_sites, firs, train_sites):
     sites run in the restoration half of the training CLI run, its
     GroupNorm sites in the train step."""
     from pnpflow_tpu_torch.ops.fused_conv_gn import (
-        conv3x3_gn, conv3x3_gn_reference)
+        conv3x3_gn, conv3x3_gn_reference, launch_plan)
     from pnpflow_tpu_torch.ops.gn_swish import (
         gn_plan, gn_swish_reference, groupnorm_swish_fwd)
     from pnpflow_tpu_torch.ops.gn_swish_bm import groupnorm_swish_bm_fwd
@@ -495,11 +544,44 @@ def kernel_parity(torch, dev, gn_sites, conv_sites, firs, train_sites):
 
     combos = [(32, 64, 64, p, s, r) for p in (False, True)
               for s in (False, True) for r in (False, True)]
-    sites = sorted(set(conv_sites) | set(train_sites[1]) | set(combos))
+    # (batch, site): every 64x64 site at the main-path batch and the bench
+    # batch, the 128x128 ones and the epilogue combinations at the main-path
+    # batch, and a batch that tiles of two 8x8 samples do not divide (133);
+    # then a ragged 7 x 12 image with every flag (the sites are square)
+    cases = [(b, site) for b in (n, BENCH_BATCH)
+             for site in sorted(set(conv_sites))]
+    cases += [(n, site) for site in sorted(
+        (set(train_sites[1]) | set(combos)) - set(conv_sites))]
+    cases += [(133, (8, 128, 256, True, True, False))]
+    ragged = (3, 7, 12, 40, 64)
+    plans, spans = Counter(), 0
     for dtype, ytol, mtol in ((torch.float32, 1e-4, 1e-4),
                               (torch.bfloat16, 2e-2, 2e-2)):
-        for i, site in enumerate(sites):
-            args, kw = conv_inputs(torch, dev, n, site, dtype, 100 + i)
+        for i, (bn_, site) in enumerate(cases + [(ragged[0], None)]):
+            if site is None:  # the ragged image, every flag
+                _, h_, w_, c_, co_ = ragged
+                g = torch.Generator(device=dev).manual_seed(77)
+                x = torch.randn(bn_, h_, w_, c_, generator=g,
+                                device=dev).to(dtype)
+                w = (torch.randn(3, 3, c_, co_, generator=g, device=dev)
+                     / (9 * c_) ** 0.5).to(dtype)
+                b = torch.randn(co_, generator=g, device=dev) * 0.1
+                args = (x, w, b)
+                kw = dict(prologue=(torch.rand(bn_, c_, generator=g,
+                                               device=dev) + 0.5,
+                                    torch.randn(bn_, c_, generator=g,
+                                                device=dev)),
+                          sample_bias=torch.randn(bn_, co_, generator=g,
+                                                  device=dev),
+                          residual=torch.randn(bn_, h_, w_, co_, generator=g,
+                                               device=dev).to(dtype))
+                where = f"ragged {ragged}"
+            else:
+                args, kw = conv_inputs(torch, dev, bn_, site, dtype, 100 + i)
+                where = f"n {bn_} at {site}"
+            plan = launch_plan(*args[0].shape[:3], args[1].shape[-1])
+            plans[f"{plan.bm}x{plan.bn}/{plan.samples}"] += 1
+            spans += plan.samples > 1
             for emit_m in ((True, False) if site in combos else (True,)):
                 y, m = conv3x3_gn(*args, emit_moments=emit_m, **kw)
                 torch.cuda.synchronize()
@@ -508,22 +590,23 @@ def kernel_parity(torch, dev, gn_sites, conv_sites, firs, train_sites):
                 scale = float(y2.float().abs().max())
                 d = float((y.float() - y2.float()).abs().max())
                 check(y.dtype == dtype and d <= ytol * scale,
-                      f"conv3x3_gn {dtype} at {site}: y err {d} "
+                      f"conv3x3_gn {dtype} {where}: y err {d} "
                       f"(max|y| {scale})")
                 if emit_m:
                     for k in range(2):
                         ref = float(m2[:, k].abs().max())
                         dm = float((m[:, k] - m2[:, k]).abs().max())
                         check(dm <= mtol * ref,
-                              f"conv3x3_gn {dtype} at {site}: moment {k} "
+                              f"conv3x3_gn {dtype} {where}: moment {k} "
                               f"err {dm} (max {ref})")
                 else:
                     check(m is None, "moments returned when not asked")
                 y3, m3 = conv3x3_gn(*args, emit_moments=emit_m, **kw)
                 check(torch.equal(y, y3) and (m is None or torch.equal(m, m3)),
-                      f"conv3x3_gn {dtype} at {site}: not bit-for-bit")
+                      f"conv3x3_gn {dtype} {where}: not bit-for-bit")
                 if dtype == torch.float32:
                     err["conv3x3_gn"] = max(err["conv3x3_gn"], d)
+    check(spans > 0, "no conv3x3_gn case took a tile of several samples")
 
     # fp32: atol 1e-5 (16 fp32 products of O(1) values); bf16: one bf16
     # rounding of outputs below 4, where an ulp is 2^-6.  Sums in a fixed
@@ -552,7 +635,8 @@ def kernel_parity(torch, dev, gn_sites, conv_sites, firs, train_sites):
     emit({"kernel_parity": {"gn_sites": len(gn_cases),
                             "gn_paths": dict(paths),
                             "gn_train_plans": train_plans,
-                            "conv_sites": len(sites),
+                            "conv_cases": 2 * (len(cases) + 1),
+                            "conv_plans": dict(plans),
                             "fir_sites": len(set(firs)),
                             "fir_paths": fir_path_counts, "batch": n,
                             "max_abs_err_fp32": err}})
@@ -1109,8 +1193,8 @@ def main_path(torch, rect_ckpt):
          only(upfirdn2d=RECT_FIR_SITES * RECT_CLI_STEPS)),
         ("rect_bf16", rect + ["bf16", "True"], 10,
          only(upfirdn2d=RECT_FIR_SITES * 10)),
-        ("rect_sr_fp32", rect + ["problem", "superresolution"], 10,
-         only(upfirdn2d=RECT_FIR_SITES * 10)),
+        ("rect_sr_fp32", rect + ["problem", "superresolution"],
+         RECT_CLI_STEPS, only(upfirdn2d=RECT_FIR_SITES * RECT_CLI_STEPS)),
     )
     runs = {}
     for name, extra, steps, expect in unet_runs + rect_runs:
@@ -1135,8 +1219,8 @@ def main_path(torch, rect_ckpt):
 def differentiated_path(torch, rect_ckpt):
     """ot_ode, flow_priors and d_flow through the CLI, fp32, FFT deblurring,
     4 images: the flagship U-Net at 64x64 (``fused_norm`` True, these
-    methods' default) with ot_ode at its default (100 steps from
-    start_time 0.2: 80 VJP steps), flow_priors at N = FP_N (K 1),
+    methods' default) with ot_ode at OT_ODE_STEPS steps (from start_time
+    0.2: 80% of them VJP steps), flow_priors at N = FP_N (K 1),
     d_flow with max_iter cut from 20 to D_FLOW_MAX_ITER and its LBFGS
     iterations from 20 to D_FLOW_LBFGS_ITER (each takes 10 forwards, 10
     recomputed, and a backward), and
@@ -1156,7 +1240,8 @@ def differentiated_path(torch, rect_ckpt):
     # name, method, options, iterations, launches (None: data-dependent,
     # checked below), FIR roles
     runs = (
-        ("ot_ode_fp32", "ot_ode", [], ot_iters,
+        ("ot_ode_fp32", "ot_ode", ["steps_ode", str(OT_ODE_STEPS)],
+         ot_iters,
          only(groupnorm_swish=gn * ot_iters), None),
         ("flow_priors_fp32", "flow_priors", ["N", str(FP_N)], FP_N,
          only(groupnorm_swish=2 * gn * FP_N), None),
@@ -1412,20 +1497,22 @@ def pnp_gs_path(torch):
     """pnp_gs through the CLI: ``model gradient_step`` (the flagship U-Net,
     ``fused_norm`` True by the method's default), 64x64, 4 images, fp32,
     seeded random weights: pgd and hqs FFT deblurring and hqs random
-    inpainting at the default 30 iterations, hqs bicubic SR at
+    inpainting at GS_ITERS iterations, hqs bicubic SR at
     GS_SR_ITERS; and pgd at 10 iterations, whose peak memory must equal
-    the 30-iteration run's (no graph lives across iterations).  Each
+    the GS_ITERS-iteration run's (no graph lives across iterations).  Each
     iteration is one forward and its VJP: exactly 136 groupnorm_swish
     launches.  These runs leave LPIPS out: its cuDNN workspace inside the
     measured region moves the peak by megabytes with the allocator's
     state, and the check holds the solver's own memory."""
     gs = ["model", "gradient_step"]
+    it = ["max_iter", str(GS_ITERS)]
     runs = (
-        ("pnp_gs_pgd_fp32", gs + ["algo", "pgd"], GS_ITERS),
+        ("pnp_gs_pgd_fp32", gs + ["algo", "pgd"] + it, GS_ITERS),
         ("pnp_gs_pgd_fp32_10it", gs + ["algo", "pgd", "max_iter", "10"], 10),
-        ("pnp_gs_hqs_fp32", gs + ["algo", "hqs"], GS_ITERS),
+        ("pnp_gs_hqs_fp32", gs + ["algo", "hqs"] + it, GS_ITERS),
         ("pnp_gs_hqs_inpainting_fp32",
-         gs + ["algo", "hqs", "problem", "random_inpainting"], GS_ITERS),
+         gs + ["algo", "hqs", "problem", "random_inpainting"] + it,
+         GS_ITERS),
         ("pnp_gs_hqs_sr_bicubic_fp32",
          gs + ["algo", "hqs", "problem", "superresolution_bicubic",
                "max_iter", str(GS_SR_ITERS)], GS_SR_ITERS),
@@ -1443,10 +1530,10 @@ def pnp_gs_path(torch):
         emit({"main_path": name, **r})
         out[name] = r
     p10 = out["pnp_gs_pgd_fp32_10it"]["max_memory_allocated"]
-    p30 = out["pnp_gs_pgd_fp32"]["max_memory_allocated"]
-    emit({"pnp_gs_peak_after": {"10": p10, "30": p30}})
-    check(p30 == p10, f"pnp_gs peak grows with iterations: {p10} at 10, "
-          f"{p30} at 30")
+    pn = out["pnp_gs_pgd_fp32"]["max_memory_allocated"]
+    emit({"pnp_gs_peak_after": {"10": p10, str(GS_ITERS): pn}})
+    check(pn == p10, f"pnp_gs peak grows with iterations: {p10} at 10, "
+          f"{pn} at {GS_ITERS}")
     return out
 
 
@@ -1565,7 +1652,8 @@ def pnp_diff_path(torch, ckpt):
     a step) at PNP_DIFF_LAPLACE_STEPS.  No kernel of the repository runs."""
     diff = ["model", "diffusion", "dim_image", str(DIFF_DIM)]
     runs = (
-        ("pnp_diff_fp32", diff, PNP_DIFF_STEPS),
+        ("pnp_diff_fp32", diff + ["max_iter", str(PNP_DIFF_STEPS)],
+         PNP_DIFF_STEPS),
         ("pnp_diff_inpainting_laplace_fp32",
          diff + ["problem", "inpainting", "noise_type", "laplace",
                  "max_iter", str(PNP_DIFF_LAPLACE_STEPS)],
@@ -1903,7 +1991,8 @@ def serve_path(torch):
             warnings.simplefilter("ignore")     # the random-init warning
             r = Restorer(method="pnp_flow",
                          problem="gaussian_deblurring_FFT", dim_image=64,
-                         batch_size=4, output_root=root)
+                         batch_size=4, output_root=root,
+                         overrides={"steps_pnp": SERVE_STEPS})
         clean = next(iter(DataLoaders("synthetic", 4, 4, dim_image=64,
                                       num_channels=3).load_data()["test"]))[0]
         y = r.degrade(clean, seed=0)
@@ -2090,8 +2179,8 @@ def rf_likelihood(torch, dev, wd):
 
 def rf_small_parity(torch, dev):
     """The smaller configurations, card against CPU within RF_REL_TOL of
-    max: the cifar10_rf_gaussian_ddpmpp loss and gradients at its batch of
-    128 (no FIR: fir False), the DDPM of score_sde's
+    max: the cifar10_rf_gaussian_ddpmpp loss and gradients at
+    CIFAR_PARITY_BATCH images (no FIR: fir False), the DDPM of score_sde's
     ``configs/vp/ddpm/cifar10.py`` (nf 128, mult 1,2,2,2, 2 blocks,
     attention at 16, 32x32) and the NCSNv2 of ncsnv2's
     ``configs/celeba.yml`` (ngf 128, 64x64, 500 noise scales): one forward
@@ -2104,9 +2193,9 @@ def rf_small_parity(torch, dev):
     cfg = get_config("cifar10_rf_gaussian_ddpmpp")
     state = _real_scale(torch, create_model(cfg), 51).state_dict()
     g = torch.Generator().manual_seed(52)
-    z0 = torch.randn(CIFAR_BATCH, 32, 32, 3, generator=g)
+    z0 = torch.randn(CIFAR_PARITY_BATCH, 32, 32, 3, generator=g)
     x1 = torch.tanh(torch.randn(z0.shape, generator=g))
-    t = torch.rand(CIFAR_BATCH, generator=g)
+    t = torch.rand(CIFAR_PARITY_BATCH, generator=g)
     out = {}
     for d in ("cpu", dev):
         m = create_model(cfg)
@@ -2120,7 +2209,7 @@ def rf_small_parity(torch, dev):
     rel = abs(lg - lw) / abs(lw)
     check(rel <= RF_REL_TOL, f"cifar10 ddpmpp loss rel err {rel}")
     res["cifar10_ddpmpp_step"] = {
-        "batch": CIFAR_BATCH, "loss_rel_err": rel,
+        "batch": CIFAR_PARITY_BATCH, "loss_rel_err": rel,
         "grad_worst_rel_err": _grad_parity(torch, gw, gg, "cifar10 ddpmpp"),
         "launches": launches}
     check(launches == only(), f"cifar10 ddpmpp launches {launches}")
@@ -2271,7 +2360,7 @@ def rf_zoo_path(torch, dev, rect_state):
 # ------------------------------------------------------------ 6d. parallel
 PAR_FM_BATCH = TRAIN_BATCH   # the FM step at 128^2, batch_size_train
 PAR_GS_BATCH = GS_TRAIN_BATCH
-PAR_STEPS = 3
+PAR_STEPS = 2
 PAR_SERVE_STEPS = 10         # pnp_flow steps of the sharding comparison
 PAR_METRIC_N = 100           # compute_metrics samples with the fan-out
 PAR_BACKEND_BATCH = 16       # grain + orbax CLI runs at 128^2
@@ -2804,26 +2893,35 @@ GN_KERNEL_NAMES = ("gn_cluster_kernel", "gn_moments_kernel",
                    "gn_normalize_kernel")
 
 
-def device_ms_each(torch, fns, names, reps=10):
+def device_ms_each(torch, fns, names, reps=10, sessions=3):
     """Device time of one call of each of ``fns``, from one torch.profiler
     session: ``reps`` calls of each in turn, each launching one kernel whose
     name contains one of ``names``; the kernels, in the order they ran,
-    belong to the calls in the order they were made."""
+    belong to the calls in the order they were made.  The profiler now and
+    then loses a kernel's record (2479 of 2480 once), which would shift
+    every attribution after it: such a session is taken again, up to
+    ``sessions`` in all, and each loss is printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn in fns:
-            for _ in range(reps):
-                fn()
-        torch.cuda.synchronize()
-    evs = sorted((ev for ev in prof.events()
-                  if ev.device_type == DeviceType.CUDA
-                  and any(name in ev.name for name in names)),
-                 key=lambda ev: ev.time_range.start)
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        evs = sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA
+                      and any(name in ev.name for name in names)),
+                     key=lambda ev: ev.time_range.start)
+        if len(evs) == reps * len(fns):
+            break
+        emit({"profiler_lost_records": {"session": session,
+                                        "recorded": len(evs),
+                                        "expected": reps * len(fns)}})
     check(len(evs) == reps * len(fns),
           f"torch.profiler recorded {len(evs)} kernels named {names}, "
           f"expected {reps * len(fns)}")
@@ -2836,20 +2934,35 @@ def time_gn_bm(torch, dev, gn_sites, dtype, n=BENCH_BATCH):
     return time_gn(torch, dev, gn_sites, dtype, n=n, bm=True)
 
 
+def conv_bounds_ms(site, n, dtype):
+    """(bytes, operations) bound of one conv3x3_gn launch at n images: x,
+    w, the residual and y once each, and the f32 vectors; 2 flops a product
+    of the 9*C*CO per pixel.  In float32 the operations bound is the least
+    time for fp32-accurate products: the CUDA cores' rate, or three TF32
+    tensor-core products per product (3xTF32), whichever is less."""
+    h, cin, cout, pro, sb, res = site
+    item = dtype.itemsize
+    px = n * h * h
+    nbytes = (px * cin + 9 * cin * cout + px * cout * (2 if res else 1)) \
+        * item + 4 * (n * 2 * cout + (2 * n * cin if pro else 0)
+                      + (n * cout if sb else 0) + cout)
+    flop = 2 * px * 9 * cin * cout
+    ops = (flop / PEAK["bfloat16"] if item == 2
+           else min(flop / PEAK["float32"], 3 * flop / PEAK["tf32"]))
+    return 1e3 * nbytes / MEM_BW, 1e3 * ops
+
+
 def time_conv(torch, dev, conv_sites, dtype, n=BENCH_BATCH):
-    """Per-forward times at batch n.  The operations bound in float32 is
-    the least time for fp32-accurate products: the CUDA cores' rate, or
-    three TF32 tensor-core products per product (3xTF32), whichever is
-    less."""
+    """Per-forward times at batch n, and by site: launches, then the
+    kernel's, the library call's and the bound's ms for all of that site's
+    launches."""
     import torch.nn.functional as F
     from pnpflow_tpu_torch.ops.fused_conv_gn import (
         conv3x3_gn, conv3x3_gn_reference)
 
-    item = torch.finfo(dtype).bits // 8
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
            "ops_ms": 0.0, "by_site": {}}
     for site, k in Counter(conv_sites).items():
-        h, cin, cout, pro, sb, res = site
         args, kw = conv_inputs(torch, dev, n, site, dtype, 0)
         x, w, b = args
         x_nchw = x.permute(0, 3, 1, 2)
@@ -2858,23 +2971,16 @@ def time_conv(torch, dev, conv_sites, dtype, n=BENCH_BATCH):
         ms = cuda_ms(torch, lambda: conv3x3_gn(*args, **kw), 3)
         lib_ms = cuda_ms(
             torch, lambda: F.conv2d(x_nchw, w_oihw, b_lib, padding=1))
-        # (h, cin, cout, prologue, sample bias, residual): launches, kernel
-        # ms and library ms for all of them
+        bytes_ms, ops_ms = (k * v for v in conv_bounds_ms(site, n, dtype))
+        # (h, cin, cout, prologue, sample bias, residual)
         tot["by_site"]["/".join(str(int(v)) for v in site)] = [
-            k, k * ms, k * lib_ms]
+            k, k * ms, k * lib_ms, max(bytes_ms, ops_ms)]
         tot["ms"] += k * ms
         tot["plain_ms"] += k * cuda_ms(
             torch, lambda: conv3x3_gn_reference(*args, **kw), 2)
         tot["library_ms"] += k * lib_ms
-        px = n * h * h
-        nbytes = (px * cin + 9 * cin * cout + px * cout * (2 if res else 1)) \
-            * item + 4 * (n * 2 * cout + (2 * n * cin if pro else 0)
-                          + (n * cout if sb else 0) + cout)
-        tot["bytes_ms"] += k * 1e3 * nbytes / MEM_BW
-        flop = 2 * px * 9 * cin * cout
-        tot["ops_ms"] += k * 1e3 * (
-            flop / PEAK["bfloat16"] if dtype == torch.bfloat16
-            else min(flop / PEAK["float32"], 3 * flop / PEAK["tf32"]))
+        tot["bytes_ms"] += bytes_ms
+        tot["ops_ms"] += ops_ms
     return tot
 
 
@@ -3395,6 +3501,23 @@ def profiles(torch, dev, gn_sites, firs, rect_state, train_batch):
     return fir["fir_adjoint"]["float32"]
 
 
+def conv_functions(sass):
+    """Each conv3x3_gn kernel function this run launched (by tile key):
+    its launches and SASS counts.  Fails if one has no HGMMA (it would not
+    be on wgmma) or no TMA load."""
+    launched = {k: v for k, v in launch_counters()["conv3x3_gn"].tiles.items()
+                if v}
+    check(launched, "no conv3x3_gn launch was counted by kernel function")
+    rows = {}
+    for key, count in sorted(launched.items()):
+        got = sass.get(key)
+        check(got is not None, f"conv3x3_gn {key}: not in the library's SASS")
+        check(got["HGMMA"] > 0 and got["UTMALDG"] > 0,
+              f"conv3x3_gn {key}: SASS holds {got}")
+        rows[key] = dict(got, launches=count)
+    return rows
+
+
 def left_running():
     """The processes this script started that still run, as
     ``pid: command`` (zombies aside), after the grain workers' forkserver
@@ -3440,7 +3563,7 @@ def main():
     with phase("setup"):
         card = setup(torch)
     with phase("build"):
-        build()
+        sass = build()
     with phase("sites"):
         gn_sites, conv_sites = unet_sites(torch, dev)
         train_sites = unet_sites(torch, dev, TRAIN_DIM)
@@ -3517,6 +3640,8 @@ def main():
     next(k for k in kernels if k["name"] == "conv3x3_gn")[
         "launches_by_run"]["parallel_profile"] = \
         prof["launches"]["conv3x3_gn"]
+    conv_row = next(k for k in kernels if k["name"] == "conv3x3_gn")
+    conv_row["sass"] = conv_functions(sass)
     left = left_running()
     for pid in left:
         os.kill(pid, signal.SIGKILL)

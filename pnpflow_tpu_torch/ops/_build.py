@@ -29,7 +29,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {
     "conv3x3_gn": (
         "conv3x3_gn_launch",
-        [_I] + [_P] * 10 + [_I] * 9 + [_P],
+        [_I] + [_P] * 11 + [_I] * 10 + [_P],
     ),
     "upfirdn2d": (
         "upfirdn2d_launch",

@@ -7,7 +7,8 @@ kernel-vs-XLA bounds); at bf16, y < 5e-2 and moments < 1.0 (the JAX bf16
 test's bounds: moments sum 64 bf16-rounded values); helpers 1e-5.
 
 Also the wrapper's host logic, which runs here as it runs on the card: its
-argument checks, and the launch plan over every flagship site.
+argument checks, the launch plan over every flagship site, and the weight
+packing the kernel's tensor maps read.
 """
 
 import itertools
@@ -22,7 +23,7 @@ from pnpflow_tpu_torch.models import unet as unet_mod
 from pnpflow_tpu_torch.ops import fused_conv_gn as pfc
 from pnpflow_tpu_torch.ops.fused_conv_gn import (
     SMS, channel_moments, concat_moments, conv3x3_gn, gn_prologue,
-    launch_plan)
+    launch_plan, pack_weight)
 
 N, H, W = 2, 8, 8
 
@@ -133,9 +134,27 @@ def test_helpers_match_jax():
 
 def test_cpu_path_does_not_count_launches():
     arrs = _case(4, 32, 32, True, False, False)
-    before = conv3x3_gn.launches
+    before, tiles = conv3x3_gn.launches, dict(conv3x3_gn.tiles)
     _run(conv3x3_gn, arrs, torch.from_numpy, torch.float32)
-    assert conv3x3_gn.launches == before
+    assert conv3x3_gn.launches == before and conv3x3_gn.tiles == tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_plan_has_a_counted_kernel_function(flagship_sites, dtype):
+    """Each tile a plan picks names a kernel function that
+    ``conv3x3_gn.tiles`` counts, and a warpgroup split the kernel has; and
+    every tile the kernel is built for is picked at some flagship site and
+    batch (no kernel function is compiled that no plan launches)."""
+    picked = set()
+    for n in (4, 20, 128, 320):
+        for h, w, _, co in set(flagship_sites):
+            plan = launch_plan(n, h, w, co)
+            assert pfc.tile_key(dtype, plan.bm, plan.bn) in conv3x3_gn.tiles
+            nwg, mw = pfc.WARPGROUPS[plan.bm]
+            assert 64 * nwg * mw == plan.bm
+            picked.add((plan.bm, plan.bn))
+    assert picked == set(pfc.TILES)
+    assert len(conv3x3_gn.tiles) == 2 * len(pfc.TILES)
 
 
 def _args(n=2, h=8, c=32, co=32, dtype=torch.float32):
@@ -198,50 +217,115 @@ def flagship_sites():
     return sites
 
 
-@pytest.mark.parametrize("n", [20, 320])
+def _check_covers_each_output_once(plan, n, h, w, co):
+    """Every (sample, row, column, channel tile) inside the data is computed
+    by exactly one block; pixels past the data are the kernel's to mask."""
+    bid = np.arange(plan.blocks(n, co))
+    s, yy, xx = plan.pixels(bid, co)
+    co0 = plan.tile(bid, co)[3]
+    inside = (s < n) & (yy < h) & (xx < w)
+    counts = np.zeros((n, h, w, co // plan.bn), np.int32)
+    np.add.at(counts, (s[inside], yy[inside], xx[inside],
+                       np.broadcast_to((co0 // plan.bn)[:, None],
+                                       s.shape)[inside]), 1)
+    assert (counts == 1).all(), (n, h, w, co, plan)
+    return s, yy, xx
+
+
+@pytest.mark.parametrize("n", [20, 320, 133])
 def test_launch_plan_covers_each_output_once_within_one_sample(
         flagship_sites, n):
+    """Each output exactly once, and a tile's halo never crosses a sample:
+    a tile is whole-sample slabs of rows x tw pixels, each slab's pixels
+    (and so the 1-pixel halo around them) come from one sample, and each
+    64-row wgmma block is 8 rows x 8 columns of one slab.  133 is a batch that tiles of two
+    8x8 samples do not divide."""
     for h, w, _, co in sorted(set(flagship_sites)):
         plan = launch_plan(n, h, w, co)
-        bid = np.arange(plan.blocks(n, co))
-        s, y0, x0, co0 = plan.tile(bid, co)
-        m = np.arange(plan.bm)
-        yy = y0[:, None] + m // plan.tw
-        xx = x0[:, None] + m % plan.tw
-        inside = (yy < h) & (xx < w)
-        # a tile starts inside its sample, and its pixels are the sample's
-        assert (s < n).all() and (y0 < h).all() and (x0 < w).all()
-        flat = (s[:, None] * h + yy) * w + xx
-        assert (flat[inside] // (h * w) == np.broadcast_to(
-            s[:, None], yy.shape)[inside]).all()
-        counts = np.zeros((n, h, w, co // plan.bn), np.int32)
-        np.add.at(counts, (np.broadcast_to(s[:, None], yy.shape)[inside],
-                           yy[inside], xx[inside],
-                           np.broadcast_to((co0 // plan.bn)[:, None],
-                                           yy.shape)[inside]), 1)
-        assert (counts == 1).all(), (h, w, co, plan)
+        s, yy, xx = _check_covers_each_output_once(plan, n, h, w, co)
+        slab = plan.rows * plan.tw
+        assert slab % 64 == 0 and plan.samples * slab == plan.bm
+        n0, y0, x0, _ = plan.tile(np.arange(plan.blocks(n, co)), co)
+        assert (n0 % plan.samples == 0).all() and (y0 < h).all()
+        assert (x0 < w).all()
+        for k in range(plan.samples):
+            part = slice(k * slab, (k + 1) * slab)
+            assert (s[:, part] == (n0 + k)[:, None]).all()
+            assert ((yy[:, part] >= y0[:, None])
+                    & (yy[:, part] < (y0 + plan.rows)[:, None])).all()
+        for part in (s, xx // 8):
+            blocks64 = part.reshape(len(part), -1, 64)
+            assert (blocks64 == blocks64[:, :, :1]).all()
+        rows64 = yy.reshape(len(yy), -1, 8, 8)
+        assert (np.diff(rows64[..., 0], axis=-1) == 1).all()
 
 
 @pytest.mark.parametrize("n", [20, 320])
 def test_launch_plan_fills_the_card(flagship_sites, n):
     """Every site gets at least one block per SM wherever it has that many
-    64-pixel x 32-channel tiles."""
+    64-pixel x 32-channel tiles, and every plan is one of the kernel's
+    tiles: 64, 128 or 256 pixels as whole-sample slabs."""
     for h, w, _, co in set(flagship_sites):
         plan = launch_plan(n, h, w, co)
         small_tiles = n * -(-h * w // 64) * (co // 32)
         assert plan.blocks(n, co) >= min(SMS, small_tiles), (h, w, co, plan)
         assert (plan.bm, plan.bn) in pfc.TILES and co % plan.bn == 0
-        assert plan.bm % plan.tw == 0 and plan.tw <= w
+        assert plan.bm in pfc.WARPGROUPS
+        assert plan.bm == plan.samples * plan.rows * plan.tw
+        assert plan.tw % 8 == 0 and plan.rows % 8 == 0
+        assert plan.tw <= max(w, 8) and plan.samples <= 4
+
+
+def test_launch_plan_spans_samples_where_they_are_small():
+    """At the bench batch the 8x8 sites take 128-pixel tiles of two samples
+    by 128 channels (the weights stream once per two samples); at 16x16 and
+    above a tile is one sample's rows."""
+    plan = launch_plan(320, 8, 8, 256)
+    assert (plan.bm, plan.bn, plan.samples, plan.rows) == (128, 128, 2, 8)
+    for h, co in ((16, 128), (32, 64), (64, 32)):
+        assert launch_plan(320, h, h, co).samples == 1
 
 
 @pytest.mark.parametrize("h,w", [(7, 7), (5, 96), (64, 200), (1, 1)])
 def test_launch_plan_covers_ragged_images(h, w):
     n, co = 3, 64
     plan = launch_plan(n, h, w, co)
-    s, y0, x0, _ = plan.tile(np.arange(plan.blocks(n, co)), co)
-    m = np.arange(plan.bm)
-    yy, xx = y0[:, None] + m // plan.tw, x0[:, None] + m % plan.tw
-    inside = (yy < h) & (xx < w)
-    flat = ((s[:, None] * h + yy) * w + xx)[inside]
-    assert np.bincount(flat, minlength=n * h * w).tolist() == \
-        [co // plan.bn] * (n * h * w)
+    _check_covers_each_output_once(plan, n, h, w, co)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 32, 40])
+def test_pack_weight_orders_k_as_the_kernel_reads_it(dtype, c):
+    """Row o of the packed weights holds w[ky, kx, c, o] at K index
+    (chunk * 9 + 3 * ky + kx) * kch + c % kch, zero past C; float32 packs
+    TF32 big halves, then the small ones, and big + small is w."""
+    co = 64
+    w = torch.from_numpy(np.random.default_rng(c).normal(
+        size=(3, 3, c, co)).astype(np.float32)).to(dtype)
+    packed = pack_weight(w)
+    kch = pfc.KBYTES // w.element_size()
+    nch = -(-c // kch)
+    rows = 2 * co if dtype == torch.float32 else co
+    assert packed.shape == (rows, nch * 9 * kch) and packed.dtype == dtype
+    got = packed[:co].float()
+    if dtype == torch.float32:
+        halves = packed.view(torch.int32)
+        assert (halves & 0x1FFF).eq(0).all()      # both halves are TF32
+        got = got + packed[co:]
+    want = torch.zeros(co, nch, 9, kch)
+    wf = w.float().permute(3, 0, 1, 2).reshape(co, 9, c)
+    for ci in range(nch):
+        part = wf[:, :, ci * kch:(ci + 1) * kch]
+        want[:, ci, :, :part.shape[-1]] = part
+    np.testing.assert_allclose(got.numpy(), want.reshape(co, -1).numpy(),
+                               rtol=2 ** -21, atol=0)
+
+
+def test_packed_weight_is_kept_until_the_weight_changes():
+    w = torch.randn(3, 3, 32, 32)
+    first = pfc._packed(w)
+    assert pfc._packed(w) is first
+    w.mul_(2.0)                       # in place: a new version
+    again = pfc._packed(w)
+    assert again is not first
+    torch.testing.assert_close(again, pack_weight(w))

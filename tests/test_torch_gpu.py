@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from pnpflow_tpu_torch.ops.fused_conv_gn import (
-    channel_moments, conv3x3_gn, conv3x3_gn_reference, gn_prologue)
+    KBYTES, WARPGROUPS, channel_moments, conv3x3_gn, conv3x3_gn_reference,
+    gn_prologue, launch_plan)
 from pnpflow_tpu_torch.ops.gn_swish import (
     gn_plan, gn_swish_reference, groupnorm_swish, groupnorm_swish_fwd)
 from pnpflow_tpu_torch.ops.gn_swish import launch as gn_launch
@@ -133,13 +134,22 @@ def test_groupnorm_swish_refuses_what_it_cannot_take(cuda, fn):
 
 # (batch, size, C, CO, flags): every epilogue combination at one shape,
 # then flagship sites that exercise the tiling -- the 3-channel begin conv,
-# the 8x8 (C -> 256) sites at the main-path batch, and 64x64 at batch 20
+# the 8x8 (C -> 256) sites at the main-path batch, and 64x64 at batch 20;
+# flag 8 asks for no moments
 CONV_CASES = [(3, 16, 64, 128, f) for f in range(8)] + [
     (20, 64, 3, 32, 0), (20, 8, 96, 256, 5), (20, 8, 384, 256, 5),
-    (20, 8, 512, 256, 5), (20, 64, 32, 32, 3), (20, 64, 96, 32, 5)]
+    (20, 8, 512, 256, 5), (20, 64, 32, 32, 3), (20, 64, 96, 32, 5)] + [
+    (3, 16, 64, 128, f | 8) for f in range(8)]
+
+# tiles that span samples: two 8x8 samples per 128 pixels at the bench
+# batch (CO 256), four 4x4 samples per 256 pixels, batches the tile's
+# samples do not divide (133, 601), the begin conv's C = 3 and CO 32 to 256
+SPAN_CASES = [(320, 8, 256, 256, 5), (133, 8, 128, 256, 1),
+              (600, 4, 32, 32, 7), (601, 4, 64, 32, 3), (320, 8, 3, 32, 0),
+              (133, 8, 64, 64, 6), (320, 8, 64, 128, 15)]
 
 
-@pytest.mark.parametrize("n,h,c,co,flags", CONV_CASES)
+@pytest.mark.parametrize("n,h,c,co,flags", CONV_CASES + SPAN_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv3x3_gn_kernel(cuda, n, h, c, co, flags, dtype):
     g = torch.Generator(device=cuda).manual_seed(flags + c)
@@ -157,20 +167,24 @@ def test_conv3x3_gn_kernel(cuda, n, h, c, co, flags, dtype):
     if flags & 4:
         kw["residual"] = torch.randn(n, h, h, co, generator=g,
                                      device=cuda).to(dtype)
+    emit = not flags & 8
     before = conv3x3_gn.launches
-    y, m = conv3x3_gn(x, w, b, **kw)
+    y, m = conv3x3_gn(x, w, b, emit_moments=emit, **kw)
     torch.cuda.synchronize()
     assert conv3x3_gn.launches == before + 1
-    y2, m2 = conv3x3_gn_reference(x, w, b, **kw)
+    y2, m2 = conv3x3_gn_reference(x, w, b, emit_moments=emit, **kw)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     scale = float(y2.float().abs().max())
     assert float((y.float() - y2.float()).abs().max()) <= tol * scale
-    for k in range(2):
+    if not emit:
+        assert m is None
+    for k in range(2 if emit else 0):
         assert (float((m[:, k] - m2[:, k]).abs().max())
                 <= tol * float(m2[:, k].abs().max()))
-    # no atomics: output and moments repeat bit for bit
-    y3, m3 = conv3x3_gn(x, w, b, **kw)
-    assert torch.equal(y, y3) and torch.equal(m, m3)
+    # the partials are summed in a fixed order, whichever block is elected
+    # last: output and moments repeat bit for bit
+    y3, m3 = conv3x3_gn(x, w, b, emit_moments=emit, **kw)
+    assert torch.equal(y, y3) and (m is None or torch.equal(m, m3))
 
 
 @pytest.mark.parametrize("n,h,w,c,co", [
@@ -199,6 +213,74 @@ def test_conv3x3_gn_kernel_ragged_shapes(cuda, n, h, w, c, co, dtype):
     for k in range(2):
         assert (float((m[:, k] - m2[:, k]).abs().max())
                 <= tol * float(m2[:, k].abs().max()))
+
+
+# (n, h, c, co): every two-warpgroup tile (128 x 32, 128 x 64, 128 x 128,
+# 256 x 32, 256 x 64) with three channel chunks or more, where both
+# warpgroups read each halo buffer and restage it while the other may lag
+RACE_CASES = [(5, 64, 96, 32), (20, 32, 96, 64), (320, 8, 256, 256),
+              (320, 64, 96, 32), (320, 32, 128, 64)]
+
+
+@pytest.mark.parametrize("n,h,c,co", RACE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_gn_repeats_beside_a_concurrent_kernel(cuda, n, h, c, co,
+                                                       dtype):
+    """Twenty calls, each launched while a matmul on another stream holds
+    part of the card (so the warpgroups of a block fall out of step), give
+    the first call's y and moments bit for bit, and that one matches the
+    plain version."""
+    plan = launch_plan(n, h, h, co)
+    assert WARPGROUPS[plan.bm][0] == 2
+    assert -(-c * dtype.itemsize // KBYTES) >= 3
+    g = torch.Generator(device=cuda).manual_seed(c + co)
+    x = torch.randn(n, h, h, c, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(3, 3, c, co, generator=g, device=cuda)
+         / (9 * c) ** 0.5).to(dtype)
+    b = torch.randn(co, generator=g, device=cuda) * 0.1
+    kw = dict(prologue=(torch.rand(n, c, generator=g, device=cuda) + 0.5,
+                        torch.randn(n, c, generator=g, device=cuda)),
+              residual=torch.randn(n, h, h, co, generator=g,
+                                   device=cuda).to(dtype))
+    y0, m0 = conv3x3_gn(x, w, b, **kw)
+    y2, m2 = conv3x3_gn_reference(x, w, b, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    scale = float(y2.float().abs().max())
+    assert float((y0.float() - y2.float()).abs().max()) <= tol * scale
+    for k in range(2):
+        assert (float((m0[:, k] - m2[:, k]).abs().max())
+                <= tol * float(m2[:, k].abs().max()))
+    a = torch.randn(2048, 2048, generator=g, device=cuda)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(20):
+        with torch.cuda.stream(side):
+            for _ in range(4):
+                a @ a
+        y, m = conv3x3_gn(x, w, b, **kw)
+        assert torch.equal(y, y0) and torch.equal(m, m0)
+    torch.cuda.synchronize()
+
+
+def test_conv3x3_gn_on_each_card_in_turn(cuda):
+    """The kernel runs on a second card after the first (its shared-memory
+    attribute belongs to each card's context).  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    for dtype in (torch.float32, torch.bfloat16):
+        for idx in range(torch.cuda.device_count()):
+            dev = torch.device("cuda", idx)
+            g = torch.Generator(device=dev).manual_seed(idx)
+            x = torch.randn(4, 16, 16, 64, generator=g, device=dev).to(dtype)
+            w = (torch.randn(3, 3, 64, 64, generator=g, device=dev)
+                 / 24).to(dtype)
+            b = torch.randn(64, generator=g, device=dev) * 0.1
+            y, m = conv3x3_gn(x, w, b)
+            y2, m2 = conv3x3_gn_reference(x, w, b)
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            assert y.device == dev
+            assert (float((y.float() - y2.float()).abs().max())
+                    <= tol * float(y2.float().abs().max()))
 
 
 def test_conv3x3_gn_rejects_what_it_cannot_take(cuda):
