@@ -111,7 +111,12 @@ failure (nothing is caught and passed over) and prints its seconds:
    steps each without a process group and under ``init_distributed`` at
    world size 1 over NCCL, equal bit for bit (cuDNN deterministic);
    ``Restorer(shard=True, n_devices=1)`` against ``shard=False`` (bit for
-   bit) and two shards on the one card (two threads, within 1e-4);
+   bit) and two shards on the one card (two threads, within 1e-4); the
+   restorations that couple a batch (d_flow, ot_ode on bicubic SR, pnp_gs
+   hqs deblurring: one solver, the network fanned out), two shards on card
+   0, and on cards 0 and 1 where two are visible, against unsharded within
+   1e-4, with the GroupNorm kernel's launches by card and its plain-version
+   parity on each card;
    ``ComputeMetric`` with the sampler and the Inception chunker fanned out
    over two copies on the card (n 100); ``train True`` through the CLI on
    a generated CelebA-layout folder at 128^2 with ``data_backend grain``
@@ -284,6 +289,7 @@ def reset_counts():
     fir = launch_counters()["upfirdn2d"]
     fir.paths = dict.fromkeys(fir.paths, 0)
     fir.roles = dict.fromkeys(fir.roles, 0)
+    launch_counters()["groupnorm_swish"].cards.clear()
 
 
 def fir_paths():
@@ -2366,6 +2372,19 @@ PAR_METRIC_N = 100           # compute_metrics samples with the fan-out
 PAR_BACKEND_BATCH = 16       # grain + orbax CLI runs at 128^2
 PAR_BACKEND_IMAGES = 40      # the generated CelebA-layout folder
 PAR_PROFILE_STEPS = 3
+# the restorations that couple a batch's images, sharded as one solver with
+# its network fanned out: (name, model, Restorer keywords), cut to depth
+PAR_COUPLED = (
+    ("d_flow", "ot", dict(method="d_flow", problem="denoising",
+                          overrides={"max_iter": 1, "LBFGS_iter": 1,
+                                     "steps_euler": 3})),
+    ("ot_ode_bicubic", "ot", dict(method="ot_ode",
+                                  problem="superresolution_bicubic",
+                                  overrides={"steps_ode": 5})),
+    ("pnp_gs_hqs_deblur", "gradient_step", dict(
+        method="pnp_gs", problem="gaussian_deblurring_FFT",
+        overrides={"algo": "hqs", "max_iter": 3})),
+)
 
 
 @contextlib.contextmanager
@@ -2581,6 +2600,121 @@ def parallel_serve(torch):
                 f"parallel/serve {name}: {err} of max from unsharded")
             out[name] = {"rel_err": err, "seconds": seconds,
                          "launches": launches, "steps": PAR_SERVE_STEPS}
+    return out
+
+
+def _coupled_checkpoint(torch, root, model, seed):
+    """The 64^2 flagship with every parameter random, as the msgpack
+    checkpoint that ``Restorer(model=model, output_root=root)`` reads."""
+    from pnpflow_tpu_torch.models.registry import (
+        model_fingerprint, save_params_file)
+    from pnpflow_tpu_torch.utils.config import CfgNode
+    from pnpflow_tpu_torch.utils.jax_params import flax_from_state_dict
+
+    m = randomized_unet(torch, "cpu", True, seed=seed)
+    args = CfgNode({"model": model, "dim_image": 64, "num_channels": 3})
+    save_params_file(flax_from_state_dict(m.state_dict()), os.path.join(
+        root, "model", "synthetic", model, "model_final.msgpack"),
+        fingerprint=model_fingerprint(m, args))
+
+
+def _coupled_restore(torch, r, y):
+    """One restore (the first of its Restorer), its seconds and its
+    launches, the GroupNorm kernel's also by card."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = r.restore(y, seed=5)          # numpy: synchronised
+    return out, {"seconds": time.perf_counter() - t0,
+                 "launches": read_counts(),
+                 "gn_by_card": dict(launch_counters()["groupnorm_swish"]
+                                    .cards)}
+
+
+def parallel_coupled(torch, gn_sites):
+    """The restorations that couple a batch's images, ``Restorer(shard=
+    True)`` as one solver on the first card with its network fanned out
+    (``parallel/mesh.py:ShardedModel``): the 64^2 flagship (``fused_norm``
+    True, their default) at 4 images, fp32, two shards on card 0, and on
+    cards 0 and 1 where two are visible, against ``shard=False`` on the
+    same request within 1e-4 of max, both with cuDNN's deterministic
+    algorithms (as the remat runs).  d_flow runs one LBFGS iteration (from
+    the second on, torch's LBFGS turns rounding into other steps) and
+    restores denoising: on FFT deblurring the dopri5 inversion of these
+    random weights takes 259 evaluations and turns a change of 1e-7
+    relative in the measurement into 2e-3 to 5e-3 of max, which no
+    sharding can stay within 1e-4 of (``tests/test_torch_gpu.py`` holds it
+    to three times that spread there).  Each shard launches the GroupNorm kernel on its
+    card: twice the unsharded count for ot_ode and pnp_gs, and for d_flow
+    136 a shard for each forward the wrapper counted; on each of those
+    cards the kernel matches its plain version at every 64^2 site at a
+    shard's batch."""
+    import numpy as np
+
+    from pnpflow_tpu_torch.ops.gn_swish import (
+        gn_swish_reference, groupnorm_swish_fwd)
+    from pnpflow_tpu_torch.serve import Restorer
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    layouts = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() > 1:
+        layouts.append(["cuda:0", "cuda:1"])
+    per_forward = gn_sites_at(64)
+    clean = np.tanh(np.random.default_rng(7).normal(
+        size=(4, 64, 64, 3))).astype(np.float32)
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as root:
+        for model, seed in (("ot", 41), ("gradient_step", 42)):
+            _coupled_checkpoint(torch, root, model, seed)
+        for name, model, kw in PAR_COUPLED:
+            kw = dict(kw, model=model, dim_image=64, batch_size=4,
+                      output_root=root)
+            plain = Restorer(**kw)
+            y = plain.degrade(clean, seed=4).cpu()
+            want, base = _coupled_restore(torch, plain, y)
+            del plain
+            out[f"{name}_unsharded"] = base
+            for devs in layouts:
+                r = Restorer(**kw, shard=True, devices=devs)
+                w = r.solver.model.model
+                got, run = _coupled_restore(torch, r, y)
+                forwards = w.forwards
+                err = rel(got, want)
+                where = f"parallel/coupled {name} on {devs}"
+                check(np.isfinite(got).all() and err <= 1e-4,
+                      f"{where}: {err} of max from unsharded")
+                del r
+                n = (per_forward * len(devs) * forwards
+                     if name == "d_flow"
+                     else len(devs) * base["launches"]["groupnorm_swish"])
+                check(run["launches"] == only(groupnorm_swish=n),
+                      f"{where}: launches {run['launches']}, {n}")
+                cards = Counter(torch.device(d).index for d in devs)
+                check(run["gn_by_card"] == {
+                    k: v * n // len(devs) for k, v in cards.items()},
+                    f"{where}: GroupNorm launches by card "
+                    f"{run['gn_by_card']}")
+                key = ("two_shards_one_card" if len(cards) == 1
+                       else "cards_0_1")
+                out[f"{name}_{key}"] = dict(run, rel_err=err, devices=devs,
+                                            wrapper_forwards=forwards)
+    torch.backends.cudnn.deterministic = deterministic
+    # not counted: the kernel against its plain version on each card
+    for d in sorted({d for devs in layouts for d in devs}):
+        for i, (h, c, swish) in enumerate(sorted(set(gn_sites))):
+            x, s, b = gn_inputs(torch, torch.device(d), 2, h, c,
+                                torch.float32, 500 + i)
+            got = groupnorm_swish_fwd(x, s, b, 32, 1e-6, swish)
+            want = gn_swish_reference(x, s, b, 32, 1e-6, swish)
+            e = float((got - want).abs().max())
+            check(got.device == x.device and e <= 1e-4,
+                  f"parallel/coupled: groupnorm_swish on {d} at "
+                  f"{(2, h, c, swish)}: err {e}")
+    out["gn_parity_cards"] = sorted({d for devs in layouts for d in devs})
     return out
 
 
@@ -2809,7 +2943,7 @@ def _par_runs(name, r):
             if isinstance(v, dict) and "launches" in v}
 
 
-def parallel_path(torch, dev):
+def parallel_path(torch, dev, gn_sites):
     """The ``parallel`` phase: every run read right after it."""
     if torch.cuda.device_count() > 1:
         print(f"{torch.cuda.device_count()} cards visible; the parallel "
@@ -2817,6 +2951,7 @@ def parallel_path(torch, dev):
     runs = {}
     for name, fn in (("trainers", lambda: parallel_trainers(torch)),
                      ("serve", lambda: parallel_serve(torch)),
+                     ("coupled", lambda: parallel_coupled(torch, gn_sites)),
                      ("metrics", lambda: parallel_metrics(torch)),
                      ("backends", lambda: parallel_backends(torch)),
                      ("norm_variants",
@@ -3610,7 +3745,7 @@ def main():
             runs["serve"] = serve_path(torch)
         emit({"main_path": "serve", **runs["serve"]})
         with phase("parallel"):
-            par = parallel_path(torch, dev)
+            par = parallel_path(torch, dev, gn_sites)
     with phase("rf_zoo"):
         runs.update(rf_zoo_path(torch, dev, rect_state))
     launches["groupnorm_swish"] += train["launches"]["groupnorm_swish"]

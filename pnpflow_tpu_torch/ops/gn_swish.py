@@ -45,6 +45,7 @@ whose Hutchinson term is a JVP inside a gradient.
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple
 
@@ -241,17 +242,18 @@ def groupnorm_swish_fwd(x, scale, bias, num_groups: int = 32,
                         eps: float = 1e-6, swish: bool = True):
     """Forward only.  The arguments are checked as the kernel takes them on
     every device; then CPU tensors take :func:`gn_swish_reference` and CUDA
-    tensors launch ``csrc/gn_swish.cu`` (counted in ``.launches``) or
-    raise."""
+    tensors launch ``csrc/gn_swish.cu`` (counted in ``.launches``, and by
+    card index in ``.cards``) or raise."""
     plan = check_args(x, scale, bias, num_groups)
     if x.device.type == "cpu":
         return gn_swish_reference(x, scale, bias, num_groups, eps, swish)
     y = launch(x, scale, bias, num_groups, eps, swish, plan)
-    _build.count_launch(groupnorm_swish_fwd)
+    _build.count_launch(groupnorm_swish_fwd, cards=x.device.index)
     return y
 
 
 groupnorm_swish_fwd.launches = 0
+groupnorm_swish_fwd.cards = collections.Counter()
 
 
 def needs_autograd(*tensors) -> bool:

@@ -19,6 +19,12 @@ use the JAX package makes of its mesh:
     :func:`devices`, :func:`replicate`, :func:`shard_batch`, :func:`gather`
     and :func:`fan_out`, which runs one thread per device so that the
     shards run at the same time.
+(c) **One solver, its network fanned out**: :class:`ShardedModel` splits
+    each forward's batch over the devices and runs a replica on each, with
+    no thread, so that a solver whose steps couple the batch's images (a
+    line search, a backtracking, GMRES) stays one solver on the first
+    device, as JAX's ``jit`` keeps those decisions global when it shards
+    the batch.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from pnpflow_tpu_torch.device import resolve_device
 
@@ -214,3 +221,64 @@ def fan_out(fn, items, threads: bool = True) -> list:
     with ThreadPoolExecutor(max_workers=len(items)) as pool:
         futures = [pool.submit(fn, i, it) for i, it in enumerate(items)]
         return [f.result() for f in futures]
+
+
+# ---------------------------------------------------------------------------
+# (c) one solver, its network fanned out
+
+
+class ShardedModel(torch.nn.Module):
+    """``forward(x, t)`` of a per-image network with the batch split over
+    ``devices``: shard k's rows of x (and of t where t has a batch
+    dimension) are copied to card k (``non_blocking``), run through
+    ``replicas[k]`` there, and the outputs are concatenated on the first
+    device, the home.  The network must be per image (GroupNorm per
+    sample, attention over space), so the result is the whole-batch
+    forward's.
+
+    No thread: CUDA launches are asynchronous, so card k computes while
+    the host issues card k+1's work, and grad mode, ``torch.func`` levels
+    and forward-AD levels stay in the caller's thread.  Gradients are
+    plain autograd through the copies.  Where a checkpoint encloses this
+    module and its shards span cards (d_flow checkpoints each step), run
+    the backward under ``torch.autograd.set_multithreading_enabled(False)``,
+    as ``serve.Restorer`` does: the engine's per-card threads would
+    otherwise recompute that one checkpoint from two threads at once, which
+    ``torch.utils.checkpoint`` does not allow.  With ``remat``, wherever autograd records, each
+    shard's replica runs under one non-reentrant ``torch.utils.checkpoint``
+    on its card (``ModelBundle.grad_forward`` does not checkpoint this
+    module again).  A replica whose parameters lie elsewhere than its
+    device, or a batch that does not divide, raises.  ``forwards`` counts
+    the calls."""
+
+    def __init__(self, replicas, devices, remat: bool = False):
+        super().__init__()
+        if len(replicas) != len(devices) or not devices:
+            raise ValueError(f"{len(replicas)} replicas for "
+                             f"{len(devices)} devices")
+        self.devices = [torch.device(d) for d in devices]
+        for k, (m, d) in enumerate(zip(replicas, self.devices)):
+            for p in m.parameters():
+                if p.device != d:
+                    raise ValueError(f"replica {k} has a parameter on "
+                                     f"{p.device}, not on {d}")
+        self.replicas = torch.nn.ModuleList(replicas)
+        self.home = self.devices[0]
+        self.remat = bool(remat)
+        self.forwards = 0
+
+    def forward(self, x, t):
+        self.forwards += 1
+        rows = batch_rows(x.shape[0], len(self.devices))
+        per_row = t.dim() > 0 and t.shape[0] == x.shape[0]
+        remat = self.remat and torch.is_grad_enabled()
+        outs = []
+        for (a, b), d, m in zip(rows, self.devices, self.replicas):
+            xs = x[a:b].to(d, non_blocking=True)
+            ts = (t[a:b] if per_row else t).to(d, non_blocking=True)
+            # the kernels launch on the current card without a switch
+            with on(d):
+                y = (checkpoint(m, xs, ts, use_reentrant=False) if remat
+                     else m(xs, ts))
+            outs.append(y.to(self.home, non_blocking=True))
+        return torch.cat(outs)

@@ -24,24 +24,35 @@ TF32 off in float32 as the CLI runs.
 
 ``shard=True`` fans each request batch out over ``n_devices`` cards (all
 visible by default; ``devices`` names them, as a test names ``["cpu",
-"cpu"]``): a copy of the model, the operator and the solver on each, the
-batch split into equal shards that run at the same time, one thread each
-(``parallel/mesh.py``).  The shards draw the solver's noise for the whole
-batch and keep their own images' (``solvers/base.py:draw_rows``), so a
-sharded restoration equals the unsharded one.  A batch that does not divide
-over the devices raises, as does ``n_devices`` above the visible count.
-Three restorations couple the images of a batch, so a shard of them would
-be another restoration, and ``shard=True`` refuses them: ``d_flow`` (its
-LBFGS line search runs over the whole batch), ``pnp_gs`` with ``algo hqs``
-on ``gaussian_deblurring_FFT`` (its step-size backtracking decides on the
-whole batch) and ``ot_ode`` on ``superresolution_bicubic`` (GMRES over the
-whole batch).  ``flow_priors`` shards run one after the other from this
-thread (their JVPs' forward-mode levels are process-wide state); on several
-cards their launches still overlap as far as the host runs ahead.
+"cpu"]``); the batch must divide over them, and ``n_devices`` may not pass
+the visible count.  How depends on whether the restoration couples the
+images of a batch (:func:`batch_coupling`):
+
+* **Independent** restorations get a copy of the model, the operator and
+  the solver on each device, the batch split into equal shards that run at
+  the same time, one thread each (``parallel/mesh.py:fan_out``).  The
+  shards draw the solver's noise for the whole batch and keep their own
+  images' (``solvers/base.py:draw_rows``), so a sharded restoration equals
+  the unsharded one.  ``flow_priors`` shards run one after the other from
+  this thread (their JVPs' forward-mode levels are process-wide state); on
+  several cards their launches still overlap as far as the host runs
+  ahead.
+* **Coupled** ones, ``d_flow`` (its dopri5 step sizes and LBFGS line
+  search), ``pnp_gs`` with ``algo hqs`` on ``gaussian_deblurring_FFT`` (its
+  step-size backtracking) and ``ot_ode`` on ``superresolution_bicubic``
+  (GMRES over the whole batch), keep one solver and the whole-batch
+  operator on the first device; only the network is fanned out, each
+  forward's batch split over the devices (``mesh.ShardedModel``), as
+  JAX's ``jit`` keeps the solver's decisions global when it shards the
+  batch.  The restoration is the unsharded one, up to the float rounding
+  of the network at a smaller batch, which d_flow's adaptive inversion and
+  line search can amplify as they amplify any change of rounding.  The
+  backward runs in the calling thread.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -61,9 +72,12 @@ CONFIG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def batch_coupling(args):
-    """Why ``args``' restoration couples the images of a batch, or None."""
+    """Why ``args``' restoration couples the images of a batch, or None:
+    the selector between the two ways ``shard=True`` fans a request out
+    (the module notes)."""
     if args.method == "d_flow":
-        return "d_flow's LBFGS line search runs over the whole batch"
+        return ("d_flow's dopri5 steps and LBFGS line search run over the "
+                "whole batch")
     if (args.method == "pnp_gs" and args.algo == "hqs"
             and args.problem == "gaussian_deblurring_FFT"):
         return ("pnp_gs hqs deblurring backtracks its step size on the "
@@ -118,23 +132,33 @@ class Restorer:
         self.sigma_noise = float(sigma_noise if sigma_noise is not None
                                  else default_sigma)
         self.solver = build_solver(self.bundle, args)
-        self.shards = None
+        # where restore runs the one solver and its operator: here, or for
+        # a coupled sharded restoration on the first device
+        self.home, self.home_degradation = self.device, self.degradation
+        self.shards = self.devices = None
         if shard:
             self._shard(batch_size, n_devices, devices)
 
     def _shard(self, batch_size, n_devices, devices):
-        """One (solver, operator) per device, the first on this device."""
-        why = batch_coupling(self.args)
-        if why is not None:
-            raise ValueError(f"shard=True would change the restoration: "
-                             f"{why}")
-        devs = ([torch.device(d) for d in devices] if devices is not None
+        """One (solver, operator) per device, the first on this device; for
+        a coupled restoration one solver and operator on the first device,
+        its model the replicas behind a ``ShardedModel``."""
+        devs = ([mesh.rank_device(d) for d in devices] if devices is not None
                 else mesh.devices(n_devices, self.device))
         self.devices = devs
         models = mesh.replicate(self.bundle.model, devs)
-        # a per-image mask is cut by the configured batch's shards
         rows = mesh.batch_rows(batch_size, len(devs))
+        if batch_coupling(self.args) is not None:
+            b = ModelBundle(model=mesh.ShardedModel(models, devs,
+                                                    self.bundle.remat),
+                            device=devs[0], kind=self.bundle.kind,
+                            remat=self.bundle.remat)
+            self.solver = build_solver(b, self.args)
+            self.home = devs[0]
+            self.home_degradation = degradation_on(self.degradation, devs[0])
+            return
         self.shards = []
+        # a per-image mask is cut by the configured batch's shards
         for d, m, r in zip(devs, models, rows):
             b = ModelBundle(model=m, device=d, kind=self.bundle.kind,
                             remat=self.bundle.remat)
@@ -154,12 +178,18 @@ class Restorer:
     def restore(self, noisy, seed: int = 0):
         """Restore one NHWC measurement batch -> numpy array; ``seed`` keys
         the solver's randomness, as the batch index does in the CLI.
-        Sharded, the batch is split over the devices."""
+        Sharded, the batch is split over the devices (for a coupled
+        restoration, each forward's batch inside the one solver)."""
         if self.shards is None:
             noisy = torch.as_tensor(noisy, dtype=torch.float32,
-                                    device=self.device)
-            return self._solve(self.solver, self.degradation, noisy,
-                               seed).numpy()
+                                    device=self.home)
+            # coupled and sharded: the backward runs in this thread, since
+            # the autograd engine's per-card threads would recompute one
+            # checkpoint (a d_flow step) from two threads at once
+            with (torch.autograd.set_multithreading_enabled(False)
+                  if self.devices is not None else contextlib.nullcontext()):
+                return self._solve(self.solver, self.home_degradation,
+                                   noisy, seed).numpy()
         noisy = torch.as_tensor(noisy, dtype=torch.float32)
         total = noisy.shape[0]
         rows = mesh.batch_rows(total, len(self.devices))

@@ -23,6 +23,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 import pnpflow_tpu_torch.utils.reporting as reporting
+from pnpflow_tpu_torch.parallel.mesh import ShardedModel
 from pnpflow_tpu_torch.utils.config import get_save_path_ip
 
 
@@ -47,8 +48,9 @@ class ModelBundle:
 
     def grad_forward(self, x, t):
         """The forward that a VJP differentiates: under ``remat`` one
-        non-reentrant ``torch.utils.checkpoint`` of the model."""
-        if self.remat:
+        non-reentrant ``torch.utils.checkpoint`` of the model, except for a
+        ``ShardedModel``, which checkpoints each shard on its card."""
+        if self.remat and not isinstance(self.model, ShardedModel):
             return checkpoint(self.model, x, t, use_reentrant=False)
         return self.model(x, t)
 

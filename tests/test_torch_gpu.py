@@ -1150,3 +1150,115 @@ def test_sharded_restorer_equals_unsharded_on_the_card(tmp_path):
     got = sharded.restore(y.cpu(), seed=3)
     assert conv3x3_gn.launches > before
     assert (got == plain.restore(y, seed=3)).all()
+
+
+# the restorations that couple a batch's images: (Restorer keywords,
+# model); sharded, one solver on the first card, its network fanned out
+COUPLED = {
+    "d_flow": dict(method="d_flow", problem="gaussian_deblurring_FFT",
+                   dim_image=64, overrides={"max_iter": 1, "LBFGS_iter": 1,
+                                            "steps_euler": 3}),
+    "ot_ode_bicubic": dict(method="ot_ode", problem="superresolution_bicubic",
+                           dim_image=32, overrides={"steps_ode": 5}),
+    "pnp_gs_hqs_deblur": dict(method="pnp_gs", model="gradient_step",
+                              problem="gaussian_deblurring_FFT", dim_image=64,
+                              overrides={"algo": "hqs", "max_iter": 2}),
+}
+
+
+@pytest.mark.parametrize("layout", ["two_on_one_card", "every_card"])
+@pytest.mark.parametrize("name", list(COUPLED))
+def test_coupled_restoration_sharded_over_cards(cuda, name, layout,
+                                                tmp_path, monkeypatch):
+    """``Restorer(shard=True)`` of d_flow, ot_ode on bicubic SR and pnp_gs
+    hqs deblurring (the flagship with real-scale random weights, fp32, cuDNN
+    deterministic) against ``shard=False``: two shards on card 0, or one on
+    every visible card (two cards or more).  ot_ode and pnp_gs within 1e-4
+    of max.  d_flow's dopri5 inversion amplifies rounding on these weights:
+    its sharded restore is held to the larger of 1e-4 and three times the
+    unsharded run's change on a measurement changed by 1e-7 relative, and
+    from the unsharded run's latent its LBFGS and flow to 1e-4.  Each shard
+    launches the GroupNorm kernel on its own card, as often as every other
+    shard, and the kernel matches its plain version there."""
+    import collections
+    import warnings
+
+    import numpy as np
+
+    from pnpflow_tpu_torch.models.registry import (
+        checkpoint_paths, model_fingerprint, save_params_file)
+    from pnpflow_tpu_torch.serve import Restorer
+    from pnpflow_tpu_torch.solvers import d_flow
+    from pnpflow_tpu_torch.utils.jax_params import flax_from_state_dict
+
+    n = torch.cuda.device_count()
+    if layout == "every_card" and n < 2:
+        pytest.skip("needs two CUDA devices or more")
+    devs = ["cuda:0"] * 2 if layout == "two_on_one_card" else [
+        f"cuda:{i}" for i in range(n)]
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    kw = dict(COUPLED[name], batch_size=2 * len(devs),
+              output_root=str(tmp_path))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        plain = Restorer(**kw)
+    m = plain.bundle.model
+    _randomized(m, 7)
+    save_params_file(flax_from_state_dict(m.state_dict()),
+                     checkpoint_paths(plain.args)["msgpack"],
+                     fingerprint=model_fingerprint(m, plain.args))
+    sharded = Restorer(**kw, shard=True, devices=devs)
+    dim = kw["dim_image"]
+    g = torch.Generator().manual_seed(1)
+    clean = torch.rand((len(devs) * 2, dim, dim, 3), generator=g) * 2 - 1
+    y = plain.degrade(clean, seed=2).cpu()
+    starts, solve = [], d_flow.lbfgs_solve
+
+    def record(loss_fn, z, **kw):
+        starts.append(z.detach().clone())
+        return solve(loss_fn, z, **kw)
+
+    monkeypatch.setattr(d_flow, "lbfgs_solve", record)
+    want = plain.restore(y, seed=3)
+
+    def rel(a):
+        return float(np.abs(a - want).max() / np.abs(want).max())
+
+    bar = 1e-4
+    if name == "d_flow":
+        wiggle = 1.0 + 1e-7 * torch.randn(y.shape, generator=g)
+        spread = rel(plain.restore(y * wiggle, seed=3))
+        bar = max(bar, 3 * spread)
+    groupnorm_swish_fwd.cards.clear()
+    before = groupnorm_swish_fwd.launches
+    got = sharded.restore(y, seed=3)
+    launched = groupnorm_swish_fwd.launches - before
+    forwards = sharded.solver.model.model.forwards
+    by_card = dict(groupnorm_swish_fwd.cards)
+    print(f"{name} on {devs}: {rel(got):.3g} of max from unsharded, "
+          f"bar {bar:.3g}, {forwards} forwards")
+    assert np.isfinite(got).all() and rel(got) <= bar, rel(got)
+    if name == "d_flow":
+        # as restore runs it: the backward in this thread
+        with sharded.solver.grad_mode(), \
+                torch.autograd.set_multithreading_enabled(False):
+            x, _ = sharded.solver.solve_batch(
+                None, y.to(sharded.home), sharded.home_degradation,
+                sharded.sigma_noise, 3, z_init=starts[0].to(sharded.home))
+        print(f"d_flow from the unsharded latent: "
+              f"{rel(x.cpu().numpy()):.3g} of max")
+        assert rel(x.cpu().numpy()) <= 1e-4
+    shards = collections.Counter(torch.device(d).index for d in devs)
+    norms = sum(isinstance(mod, torch.nn.GroupNorm) for mod in m.modules())
+    per_shard = norms * forwards
+    assert launched == per_shard * len(devs)
+    assert by_card == {k: v * per_shard for k, v in shards.items()}
+    for idx in shards:
+        dev = torch.device("cuda", idx)
+        gd = torch.Generator(device=dev).manual_seed(idx)
+        x = torch.randn(2, 16, 16, 128, generator=gd, device=dev)
+        s = 1.0 + 0.2 * torch.randn(128, generator=gd, device=dev)
+        b = 0.1 * torch.randn(128, generator=gd, device=dev)
+        y1 = groupnorm_swish_fwd(x, s, b)
+        assert y1.device == dev
+        assert float((y1 - gn_swish_reference(x, s, b)).abs().max()) <= 1e-4

@@ -70,18 +70,21 @@ def test_degrade_is_seeded(noise, tmp_path):
 
 
 def test_sharding_raises():
-    """Sharding is ported (``tests/test_torch_parallel.py``); what it
-    refuses: more devices than are visible, a device count without
-    ``shard=True``, and a restoration that couples the batch's images."""
+    """Sharding is ported (``tests/test_torch_parallel.py``,
+    ``tests/test_torch_serve_coupled*.py``); what it refuses: more devices
+    than are visible and a device count without ``shard=True``.  A
+    restoration that couples the batch's images is no longer refused: it
+    keeps one solver, its network fanned out."""
     with pytest.raises(ValueError, match="n_devices 2: 1 cpu"):
         Restorer(device="cpu", shard=True, n_devices=2, dim_image=16,
                  problem="denoising", batch_size=2)
     with pytest.raises(ValueError, match="need shard=True"):
         Restorer(device="cpu", n_devices=2)
-    with pytest.raises(ValueError, match="LBFGS"):
-        Restorer(device="cpu", method="d_flow", problem="denoising",
-                 dim_image=16, batch_size=2, shard=True,
-                 devices=["cpu", "cpu"])
+    with pytest.warns(UserWarning, match="random init"):
+        r = Restorer(device="cpu", method="d_flow", problem="denoising",
+                     dim_image=16, batch_size=2, shard=True,
+                     devices=["cpu", "cpu"])
+    assert r.shards is None and len(r.solver.model.model.replicas) == 2
 
 
 def test_pnp_gs_request_does_not_depend_on_earlier_ones(tmp_path):
