@@ -1,0 +1,7 @@
+"""The share of the traced window in which the card ran nothing, in
+percent: one less the union of its operations' intervals over the window."""
+
+
+def read(run):
+    t = run.trace
+    return None if t is None else 100.0 * (1.0 - t.busy_s() / t.window_s)
